@@ -29,6 +29,10 @@ from .models import opacity as opacity_models
 from .utils.deck import Deck, DeckError
 
 
+
+# census path values (step.census_path)
+USE_PALLAS_MODES = ("auto", "on", "off", "interpret")
+
 class SourceStrategy(enum.Enum):
     uniform = "uniform"
     energy = "energy"  # parsed but rejected at runtime, like sourcing.cpp:38-39
@@ -134,18 +138,20 @@ class JaybenneConfig:
     source_strategy: SourceStrategy = SourceStrategy.uniform
     do_emission: bool = True
     do_feedback: bool = True
-    # --- TPU-build extensions (not in the reference) -------------------------
+    # --- extensions of this build (not in the reference) ----------------------
     # particle-ledger capacity headroom over num_particles (census survivors +
     # one step of emission births must fit; overflow is detected and reported)
     capacity_factor: float = 2.0
-    precision: str = "f32"  # "f32" (TPU default) | "f64" (needs jax_enable_x64)
+    precision: str = "f32"  # "f32" (default) | "f64" (needs jax_enable_x64)
     # devices to distribute over (0 = all visible); replaces mpiexec -n N
     n_devices: int = 1
-    # "particle" (sharded ledger, replicated fields — TPU-first) or "spatial"
+    # "particle" (sharded ledger, replicated fields — the default) or "spatial"
     # (sharded blocks + all_to_all migration — the reference's decomposition)
     decomposition: str = "particle"
-    # Pallas census-loop mega-kernel: "auto" (on TPU when the config is supported),
-    # "on" (force), "off"
+    # census path (step.census_path): "auto" (the Pallas census kernel on a GPU
+    # where it applies, else the XLA event loop), "on" (the kernel; raises where
+    # it cannot run), "off" (the XLA loop), "interpret" (the kernel in the Pallas
+    # interpreter — tests only)
     use_pallas: str = "auto"
     # spatial decomposition: cap on census migration rounds per step (the
     # migration-loop analog of max_transport_iterations; the reference's
@@ -171,7 +177,7 @@ class JaybenneConfig:
     census_iters_per_round: int = 128
     # per-cycle host-side invariant validation (PARTHENON_DEBUG_REQUIRE analog)
     debug_checks: bool = False
-    # --- external volume radiation source (TPU-build extension) --------------
+    # --- external volume radiation source (extension of this build) ---------
     # Isotropic radiation injected at a fixed energy-density rate q
     # [erg/cm^3/s] inside an axis-aligned box while t < tmax — the driving
     # term of the Su & Olson (1996) non-equilibrium benchmark family; the
@@ -196,6 +202,8 @@ class JaybenneConfig:
             raise DeckError("precision must be f32 or f64")
         if self.decomposition not in ("particle", "spatial"):
             raise DeckError("decomposition must be particle or spatial")
+        if self.use_pallas not in USE_PALLAS_MODES:
+            raise DeckError(f"use_pallas must be one of {USE_PALLAS_MODES}")
         if self.census_iters_per_round < 0:
             raise DeckError("census_iters_per_round must be >= 0")
         if self.max_migration_rounds < 1:

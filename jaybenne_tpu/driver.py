@@ -12,7 +12,6 @@ CLI: ``python -m jaybenne_tpu.driver -i inputs/stepdiff.in [-d outdir] [-r ckpt]
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import sys
 import time as _time
@@ -56,8 +55,6 @@ class Simulation:
             from .parallel import sharding
 
             self.dmesh = sharding.device_mesh(self.n_devices)
-            capacity = sharding.pad_capacity(capacity, self.n_devices)
-            capacity = self._round_capacity(capacity)
         self.state = state_mod.initial_state(self.mesh, capacity, jb.seed, self.dtype)
         self.state = state_mod.SimState(
             fields=generate_problem(self.state.fields, self.mesh, cfg, self.dtype),
@@ -112,7 +109,14 @@ class Simulation:
             # checkpoint/resume: full state (fields + particle ledger + RNG +
             # counters) — SURVEY §5 notes this as a cheap win over the reference,
             # whose restart path is inherited from Parthenon but never exercised
-            self.state = io_mod.read_checkpoint(restart, self.state)
+            # a run that grew its ledger resumes with the grown ledger: the
+            # per-slot random streams depend on the capacity, so the same
+            # capacity is what keeps a resumed run bitwise on track
+            self.t, self.cycle, saved_cap = io_mod.read_checkpoint_header(restart)
+            capacity = max(
+                self.state.particles.capacity, self._round_capacity(saved_cap)
+            )
+            self.state = io_mod.read_checkpoint(restart, self.state, capacity)
             if self._distributed:
                 # re-place the restored host arrays on the device mesh (restart
                 # with the same device count resumes bitwise; in spatial mode
@@ -137,31 +141,14 @@ class Simulation:
                     self.state, self.dmesh,
                     shard_fields=jb.decomposition == "spatial",
                 )
-            import h5py
-
-            with h5py.File(restart, "r") as h:
-                self.t = float(h.attrs["Time"])  # full-precision host time
-                self.cycle = int(h.attrs["NCycle"])
             self._next_dump_t = self.t
             if not quiet:
                 print(f"restarted from {restart} at t={self.t:.6e} cycle={self.cycle}")
 
     def _round_capacity(self, cap: int) -> int:
-        """Round up so the census mega-kernel stays eligible: each shard's slice of
-        the ledger must be a whole number of pallas tiles."""
-        jb = self.cfg.jaybenne
-        if jb.use_pallas != "off" and jb.precision == "f32":
-            from .ops.pallas_bucketed import BTILE as PB_BTILE
-            from .ops.pallas_grid import BTILE as PG_BTILE
-            from .ops.pallas_transport import TILE
-
-            # every kernel family must stay eligible: under a JB_SUBLANES
-            # sweep TILE can drop below the bucketed kernels' BTILE, and a
-            # TILE-only alignment would silently reroute big-mesh runs to
-            # the ~50x-slower XLA loop (capacity % BTILE != 0 in _pallas_ok)
-            unit = math.lcm(TILE, PG_BTILE, PB_BTILE) * max(self.n_devices, 1)
-            cap = ((cap + unit - 1) // unit) * unit
-        return cap
+        """Round up to a whole number of equal per-device ledger slices."""
+        n = max(self.n_devices, 1) if self._distributed else 1
+        return -(-cap // n) * n
 
     def _capacity(self) -> int:
         jb = self.cfg.jaybenne
@@ -186,7 +173,8 @@ class Simulation:
         """Grow the particle ledger before the next sourcing could overflow it — the
         equivalent of Parthenon's swarm pool growth in ``AddEmptyParticles``
         (reference ``sourcing.cpp:122-131``). Growth doubles capacity (amortized
-        recompile) and keeps all live particles in place."""
+        recompile) and keeps all live particles in place. A sharded ledger grows
+        slice by slice, so every particle stays on its shard."""
         import dataclasses
 
         import jax.numpy as jnp
@@ -199,19 +187,25 @@ class Simulation:
         if need <= p.capacity:
             return
         new_cap = self._round_capacity(max(need, 2 * p.capacity))
-        pad = new_cap - p.capacity
+        n = self.n_devices if self._distributed else 1
+        pad = (new_cap - p.capacity) // n
 
         def grow(arr):
-            return jnp.concatenate(
-                [arr, jnp.zeros((pad,) + arr.shape[1:], dtype=arr.dtype)]
-            )
+            a = arr.reshape((n, -1) + arr.shape[1:])
+            z = jnp.zeros((n, pad) + arr.shape[1:], dtype=arr.dtype)
+            return jnp.concatenate([a, z], axis=1).reshape((new_cap,) + arr.shape[1:])
 
-        import dataclasses as _dc
-
-        grown = _dc.replace(
-            p, **{f.name: grow(getattr(p, f.name)) for f in _dc.fields(p)}
+        grown = dataclasses.replace(
+            p, **{f.name: grow(getattr(p, f.name)) for f in dataclasses.fields(p)}
         )
-        self.state = _dc.replace(self.state, particles=grown)
+        self.state = dataclasses.replace(self.state, particles=grown)
+        if self._distributed:
+            from .parallel import sharding
+
+            self.state = sharding.shard_state(
+                self.state, self.dmesh,
+                shard_fields=self.cfg.jaybenne.decomposition == "spatial",
+            )
         if not self.quiet:
             print(f"ledger grown: capacity {p.capacity} -> {new_cap}", flush=True)
 
@@ -414,7 +408,7 @@ def _parse_walltime(text):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU-native IMC thermal photon transport")
+    ap = argparse.ArgumentParser(description="Implicit Monte Carlo thermal photon transport")
     ap.add_argument("-i", "--input", required=True, help="input deck (.in)")
     ap.add_argument("-d", "--outdir", default=".", help="output directory")
     ap.add_argument("-r", "--restart", default=None, help="checkpoint (.rhdf) to resume")

@@ -27,6 +27,13 @@ try:
 except Exception:  # pragma: no cover
     HAVE_H5PY = False
 
+
+def _require_h5py(what):
+    """h5py is optional (the run itself does not need it); dump, checkpoint
+    and restart paths fail with a clear message when it is missing."""
+    if not HAVE_H5PY:
+        raise RuntimeError(f"h5py is unavailable; cannot {what}")
+
 # dump-variable name -> Fields attribute
 VARIABLE_MAP = {
     "field.material.density": "rho",
@@ -45,8 +52,7 @@ def dump_filename(problem_id: str, number: int, outdir: str = ".") -> str:
 
 
 def write_dump(path, state, mesh, cfg, variables, swarm_variables=()):
-    if not HAVE_H5PY:  # pragma: no cover
-        raise RuntimeError("h5py is unavailable; cannot write HDF5 dumps")
+    _require_h5py("write HDF5 dumps")
     f = state.fields
     with h5py.File(path, "w") as h:
         h.attrs["Time"] = float(state.t)
@@ -110,8 +116,7 @@ def write_dump_parthenon(path, state, mesh, cfg, variables, swarm_variables=()):
     The native compact writer (``write_dump``) stays the default; this variant
     is pure layout — both carry identical values.
     """
-    if not HAVE_H5PY:  # pragma: no cover
-        raise RuntimeError("h5py is unavailable; cannot write HDF5 dumps")
+    _require_h5py("write HDF5 dumps")
     B = mesh.n_blocks
     nx, ny, nz = mesh.nx, mesh.ny, mesh.nz
     origin = np.asarray(mesh.block_origin, dtype=np.float64)  # [B, 3] (x, y, z)
@@ -235,8 +240,7 @@ def write_checkpoint(path, state, mesh, t=None, cycle=None):
     saved with only the REAL blocks (a block-sharded spatial run pads the block
     axis for an even device split; the pad depends on the device count, so
     checkpoints stay portable across decompositions and device counts)."""
-    if not HAVE_H5PY:  # pragma: no cover
-        raise RuntimeError("h5py is unavailable; cannot write checkpoints")
+    _require_h5py("write checkpoints")
     B = mesh.n_blocks
     with h5py.File(path, "w") as h:
         h.attrs["Time"] = float(state.t) if t is None else float(t)
@@ -255,8 +259,20 @@ def write_checkpoint(path, state, mesh, t=None, cycle=None):
         h.create_dataset("rng_key", data=np.asarray(state.rng_key))
 
 
-def read_checkpoint(path, state):
-    """Load a checkpoint into an existing state.
+def read_checkpoint_header(path):
+    """(time, cycle, ledger capacity) of a checkpoint, time at full host
+    precision."""
+    _require_h5py("read checkpoints")
+    with h5py.File(path, "r") as h:
+        return (
+            float(h.attrs["Time"]), int(h.attrs["NCycle"]),
+            int(h["particles/alive"].shape[0]),
+        )
+
+
+def read_checkpoint(path, state, capacity=None):
+    """Load a checkpoint into an existing state (with its ledger resized to
+    ``capacity`` when given).
 
     Shape adaptation (device-count portability): field block axes are re-padded
     to the state's (possibly padded) length with the benign spatial-pad fill;
@@ -266,6 +282,7 @@ def read_checkpoint(path, state):
 
     from .parallel.spatial import PAD_ONES as pad_ones
 
+    _require_h5py("read checkpoints")
     with h5py.File(path, "r") as h:
         fvals = {}
         for k in h["fields"]:
@@ -283,7 +300,7 @@ def read_checkpoint(path, state):
         fields = dataclasses.replace(state.fields, **fvals)
 
         alive_saved = np.asarray(h["particles/alive"][...])
-        cap = state.particles.capacity
+        cap = capacity or state.particles.capacity
         perm = None
         if alive_saved.shape[0] > cap:
             n_live = int(alive_saved.sum())

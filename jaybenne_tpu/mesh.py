@@ -1,6 +1,6 @@
 """Block-structured Cartesian mesh with optional static refinement (SMR).
 
-TPU-native replacement for the Parthenon ``Mesh``/``MeshBlock`` layer the reference
+JAX replacement for the Parthenon ``Mesh``/``MeshBlock`` layer the reference
 consumes (SURVEY §2c): pointer-rich per-block objects become
 
   * dense per-variable field arrays of shape ``[n_blocks, nz, ny, nx]`` (every block

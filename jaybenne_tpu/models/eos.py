@@ -1,6 +1,6 @@
 """Equations of state.
 
-TPU-native replacement for the singularity-eos surface jaybenne consumes
+JAX replacement for the singularity-eos surface jaybenne consumes
 (``EOS::TemperatureFromDensityInternalEnergy`` / ``SpecificHeatFromDensityInternalEnergy``;
 call sites ``/root/reference/src/jaybenne/jaybenne.cpp:311-312``,
 ``transport.cpp:124``). Models are small frozen dataclasses of scalars whose methods are

@@ -1,6 +1,6 @@
 """Photon absorption opacity and scattering models.
 
-TPU-native replacement for the singularity-opac surface jaybenne consumes
+JAX replacement for the singularity-opac surface jaybenne consumes
 (``Opacity::AbsorptionCoefficient(rho, T, nu)``, ``Opacity::Emissivity(rho, T)``,
 ``Scattering::TotalScatteringCoefficient(rho, T, nu)``,
 ``GetRuntimePhysicalConstants``; call sites ``/root/reference/src/jaybenne/jaybenne.cpp:182,

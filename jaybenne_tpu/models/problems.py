@@ -1,6 +1,6 @@
 """Problem generators — initial matter state per problem id.
 
-TPU-native equivalent of ``mcblock::ProblemGenerator`` + ``PostInitialization``
+JAX equivalent of ``mcblock::ProblemGenerator`` + ``PostInitialization``
 (``/root/reference/src/mcblock/mcblock.cpp:155-262``): every problem initializes
 ``rho = rho0`` and ``sie = cv * T0`` everywhere; ``stepdiff`` additionally drops the
 right half-space (``x >= 0``) to ``T = 1e-5 * T0``; then ``u = rho * sie``.

@@ -1,6 +1,6 @@
 """Derived transport fields: Fleck factor and DDMC face probabilities.
 
-TPU-native equivalent of ``UpdateDerivedTransportFields``
+JAX equivalent of ``UpdateDerivedTransportFields``
 (``/root/reference/src/jaybenne/jaybenne.cpp:277-492``).
 
 Fleck factor (Fleck & Cummings 1971), per cell::

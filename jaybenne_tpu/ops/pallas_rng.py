@@ -1,19 +1,18 @@
-"""Shared in-kernel RNG for the Pallas transport kernels.
+"""In-kernel counter-based RNG for the census kernel.
 
-Compiled mode uses the TPU hardware PRNG (``pltpu.prng_random_bits``, the
-analog of the reference's per-thread ``XorShift64`` pool, ``rng.hpp``);
-interpret mode (CPU tests) uses a counter-based murmur3-finalizer hash keyed
-by (seed, lane, iteration, call-site tag), since ``pltpu.prng_*`` has no CPU
-lowering.
+Every draw is a murmur3-finalizer hash of (seed, lane, iteration, call-site
+tag): stateless, so a lane's stream depends only on its global slot and the
+loop iteration, never on how lanes are grouped into blocks — the analog of the
+reference's per-thread ``XorShift64`` pool (``rng.hpp``).
 
-``DrawPool`` serves uniform variates with minimal PRNG word count:
+``DrawPool`` serves uniform variates with minimal hash count:
 
 * ``u23(it)`` burns a full 32-bit word for a 23-bit-mantissa uniform — used
   for the exponential distance/time draws, where tail resolution matters
   (``exp23`` wraps the -log);
 * ``u16(it)`` packs TWO 16-bit variates per word (angles, in-cell positions —
   smooth transforms where 1.5e-5 resolution is far below Monte Carlo noise),
-  halving the PRNG op count on those call sites.
+  halving the hash count on those call sites.
 
 u16 MUST NOT feed probability-THRESHOLD tests (``u < p``): the comparison
 quantizes p to multiples of 1/65536, so rare branches (p ≲ 1e-4 — e.g. the
@@ -24,43 +23,28 @@ relative bias — P(u16 < 1e-5) = 1/65536, +53%. Threshold draws use ``u23``
 is the regression gate.
 
 The pool is a Python-side trace helper: the census loop body is traced once,
-so each call site gets a fixed word/half assignment. Tags are allocated from
-a counter (compiled mode ignores them — the hardware PRNG is stateful;
-interpret mode hashes them in). Create ONE pool per traced loop body.
+so each call site gets a fixed word/half assignment and a fixed tag. Create
+ONE pool per traced loop body.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # Python float, NOT a jnp constant: module-level jax arrays would be traced
 # as captured constants by pallas_call (rejected); a literal folds in-place.
 _TINY = 1.0e-37
 
 
-def make_raw_bits(shape, seed_scalar, lane_offset, interpret):
-    """Build the (it, tag) -> u32[shape] bits source for one kernel instance.
+def make_raw_bits(n, seed_scalar, lane_offset):
+    """Build the (it, tag) -> u32[n] bits source for one block of ``n`` lanes.
 
-    ``seed_scalar``: traced scalar (SMEM seed); ``lane_offset``: static int,
-    the tile's global lane offset (decorrelates tiles in interpret mode)."""
-    if not interpret:
-        pltpu.prng_seed(seed_scalar + pl.program_id(0))
-
-        def raw_bits(it, tag):
-            del it, tag  # the hardware PRNG is stateful
-            return pltpu.prng_random_bits(shape)
-
-        return raw_bits
-
-    lane_id = (
-        jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * shape[1]
-        + jax.lax.broadcasted_iota(jnp.uint32, shape, 1)
-        + jnp.uint32(lane_offset)
-    )
-    seed_u = seed_scalar.astype(jnp.uint32)
+    ``seed_scalar``: i32/u32 scalar; ``lane_offset``: the global slot of the
+    block's first lane (static int or traced i32 scalar)."""
+    lane = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
+    lane_id = (lane + lane_offset).astype(jnp.uint32)
+    seed_u = jnp.asarray(seed_scalar).astype(jnp.uint32)
 
     def raw_bits(it, tag):
         x = (
@@ -79,6 +63,13 @@ def make_raw_bits(shape, seed_scalar, lane_offset, interpret):
     return raw_bits
 
 
+def _bits_to_unit(bits, n):
+    """The low ``n`` bits of ``bits`` (u32) as a uniform on [0, 1)."""
+    return (bits & ((1 << n) - 1)).astype(jnp.int32).astype(jnp.float32) * (
+        1.0 / (1 << n)
+    )
+
+
 class DrawPool:
     """See module docstring. One instance per traced loop body."""
 
@@ -93,20 +84,15 @@ class DrawPool:
         return b
 
     def u23(self, it):
-        b = self._bits(it)
-        return ((b >> 9) & 0x7FFFFF).astype(jnp.float32) * jnp.float32(
-            1.0 / (1 << 23)
-        )
+        return _bits_to_unit(self._bits(it) >> 9, 23)
 
     def u16(self, it):
         if self._spare is not None:
             u, self._spare = self._spare, None
             return u
         b = self._bits(it)
-        self._spare = ((b >> 16) & 0xFFFF).astype(jnp.float32) * jnp.float32(
-            1.0 / (1 << 16)
-        )
-        return (b & 0xFFFF).astype(jnp.float32) * jnp.float32(1.0 / (1 << 16))
+        self._spare = _bits_to_unit(b >> 16, 16)
+        return _bits_to_unit(b, 16)
 
     def exp23(self, it):
         return -jnp.log(jnp.maximum(self.u23(it), _TINY))
@@ -115,13 +101,9 @@ class DrawPool:
         """(cos phi, sin phi) for phi ~ U[0, 2pi) from ONE word, with a single
         transcendental: c = cos(pi*u) over a 23-bit u covers (-1, 1] with
         exactly the arccos density of the cosine of a uniform angle, and
-        |sin| = sqrt(1 - c^2) takes its sign from an independent raw bit.
-        Replaces the cos+sin pair at every azimuth-sampling site (sin lowers
-        to a full polynomial approximation on the VPU; sqrt is hardware)."""
+        |sin| = sqrt(1 - c^2) takes its sign from an independent raw bit."""
         b = self._bits(it)
-        u = ((b >> 9) & 0x7FFFFF).astype(jnp.float32) * jnp.float32(
-            1.0 / (1 << 23)
-        )
-        ch = jnp.cos(jnp.float32(3.14159265358979) * u)
+        u = _bits_to_unit(b >> 9, 23)
+        ch = jnp.cos(3.14159265358979 * u)
         sh = jnp.sqrt(jnp.maximum(1.0 - ch * ch, 0.0))
         return ch, jnp.where((b & 1) != 0, -sh, sh)

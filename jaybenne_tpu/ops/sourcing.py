@@ -1,6 +1,6 @@
 """Photon sourcing (thermal initialization and per-step emission).
 
-TPU-native equivalent of ``SourcePhotons<T, SourceType>``
+JAX equivalent of ``SourcePhotons<T, SourceType>``
 (``/root/reference/src/jaybenne/sourcing.cpp:25-208``). The reference's two-pass
 scheme (per-cell counts + team prefix-scan, host ``AddEmptyParticles``, then a
 per-cell fill kernel) becomes a fully vectorized candidate grid + rank-ordered
@@ -109,7 +109,7 @@ def source_photons(
     counts/weights are purely local (no psum), particles are emitted with global
     block ids, and padding blocks (global id >= mesh.n_blocks) source nothing.
 
-    ``source_type = "external"`` (TPU-build extension, the Su-Olson driving
+    ``source_type = "external"`` (an extension of this build, the Su-Olson driving
     term): isotropic radiation injected at the fixed rate ``q`` [erg/cm^3/s]
     inside ``inside_mask`` (a local-fields-shaped bool; ``n_src_cells`` is the
     static GLOBAL source-cell count normalizing the per-cell particle budget)

@@ -1,6 +1,6 @@
 """Tallies and fluid feedback — atomic-free segment reductions.
 
-TPU-native equivalents of:
+JAX equivalents of:
 
   * ``EvaluateRadiationEnergy`` (``/root/reference/src/jaybenne/jaybenne.cpp:514-564``):
     zero + per-particle ``Kokkos::atomic_add(weight / dV)`` becomes one

@@ -1,6 +1,6 @@
 """Event-based IMC / DDMC photon transport.
 
-TPU-native replacement for the reference's per-history device loops
+JAX replacement for the reference's per-history device loops
 (``TransportPhotons``, ``/root/reference/src/jaybenne/transport.cpp:28-181``;
 ``TransportPhotons_DDMC``, ``transport_ddmc.cpp:28-237``; step math in
 ``transport_utils.hpp:111-397``). The divergent per-particle ``while`` loop becomes a
@@ -629,7 +629,7 @@ def resolve_block_transition(
     # ambiguous (it would always pick the upper block, livelocking a downward-moving
     # particle in zero-length crossings). Probe the lookup with the position nudged
     # HALF a finest cell along the CROSSED face's normal — known exactly from the
-    # out flags, like the Pallas kernels (pallas_transport.py). A velocity-scaled
+    # out flags, like the census kernel (pallas_census.py). A velocity-scaled
     # nudge is NOT enough: for grazing crossings (|v_axis|/c below ~position-ulp /
     # 0.01 cell) the f32 add rounds away entirely, the lookup re-picks the block
     # just left, and the particle spins at face distance 0 to the iteration cap

@@ -1,10 +1,10 @@
 """Multi-device distribution.
 
 The reference distributes by spatial block decomposition over MPI ranks with particle
-migration and a global completion reduction (SURVEY §2d). On TPU, two strategies are
+migration and a global completion reduction (SURVEY §2d). Two strategies are
 provided:
 
-**Particle sharding (default, TPU-first).** The particle ledger is sharded over the
+**Particle sharding (default).** The particle ledger is sharded over the
 device mesh; block field arrays are replicated (they are orders of magnitude smaller
 than the ledger for production particle counts). Consequences:
 
@@ -12,19 +12,19 @@ than the ledger for production particle counts). Consequences:
     to completion independently (no migration, no per-iteration allreduce, perfect
     load balance regardless of the spatial particle distribution);
   * per-step communication is exactly three ``psum``s (global per-cell birth counts,
-    absorption deposits, tally) riding ICI;
+    absorption deposits, tally) over NVLink;
   * RNG streams are decorrelated by folding ``axis_index`` into the step key — the
     analog of the reference's ``seed + my_rank`` (``jaybenne.cpp:187-190``).
 
 This inverts the reference's decomposition on purpose: MPI jaybenne must decompose
-space because fields and particles live together in block memory; on a TPU pod the
+space because fields and particles live together in block memory; on an accelerator the
 ledger dominates memory and the fields fit everywhere exercised by the reference's
 problem class. The crossover (huge meshes, ~>10^8 cells) is where the spatial
 strategy below takes over.
 
 **Spatial (block) sharding** (``jaybenne_tpu.parallel.spatial``): blocks sharded over
 devices, particles migrate via ``all_to_all`` inside an iterate-until-``psum``-zero
-census loop — a faithful TPU mapping of the reference's swarm communication
+census loop — a faithful mapping of the reference's swarm communication
 (``jaybenne.cpp:113-131``).
 """
 

@@ -1,6 +1,6 @@
 """Spatial (block-sharded) distribution with particle migration and SHARDED fields.
 
-The faithful TPU mapping of the reference's MPI decomposition (SURVEY §2d):
+The mapping of the reference's MPI decomposition (SURVEY §2d):
 blocks are assigned contiguously to shards; particles live on the shard owning their
 block; the per-step census loop becomes
 
@@ -10,7 +10,7 @@ block; the per-step census loop becomes
 
 which is exactly the reference's iterative task list (``jaybenne.cpp:113-131``:
 transport -> swarm Send/Receive -> ``SampleDDMCBlockFace`` -> global completion
-check), with ``lax.all_to_all`` over ICI in place of per-neighbor MPI buffers and
+check), with ``lax.all_to_all`` in place of per-neighbor MPI buffers and
 ``psum`` in place of the allreduce.
 
 **Memory layout.** Field arrays are SHARDED along the block axis (padded to
@@ -47,12 +47,13 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import PartitionSpec as P
 
 from ..config import RunConfig
 from ..particles import insert_particles
 from ..state import SimState
-from ..step import StepStats, make_transport_params
+from ..step import StepStats, census_path, make_transport_params
 from ..ops import fleck as fleck_ops
 from ..ops import rng, sourcing, tally
 from ..ops import transport as transport_ops
@@ -74,6 +75,39 @@ def _pad_blocks(arr, n_pad, fill=0.0):
     return jnp.concatenate([arr, jnp.full(pad_shape, fill, dtype=arr.dtype)])
 
 
+def _pack_cols(cols, idx):
+    """Stack ``cols`` (each [n]) as i32 lanes of one [n + 1, L] row matrix
+    (a zero row appended) and gather its rows at ``idx``. 64-bit columns
+    (precision = f64) are bitcast to TWO i32 lanes, f32 bitcast to one, other
+    types converted. Returns ``(rows, offsets)``: column ``c`` starts at lane
+    ``offsets[c]``; unpack with ``_unpack_col(rows, offsets[c], dtype)``."""
+    i32 = jnp.int32
+    packed = []
+    offsets = []
+    for c in cols:
+        offsets.append(len(packed))
+        if np.dtype(c.dtype).itemsize == 8:
+            two = jax.lax.bitcast_convert_type(c, i32)  # [n, 2]
+            packed += [two[:, 0], two[:, 1]]
+        elif c.dtype == jnp.float32:
+            packed.append(jax.lax.bitcast_convert_type(c, i32))
+        else:
+            packed.append(c.astype(i32))
+    mat = jnp.stack(packed, axis=1)
+    mat = jnp.concatenate([mat, jnp.zeros((1, mat.shape[1]), i32)])
+    return mat[idx], tuple(offsets)
+
+
+def _unpack_col(rows, off, dtype):
+    """Inverse of ``_pack_cols`` for the column starting at lane ``off``."""
+    if np.dtype(dtype).itemsize == 8:
+        return jax.lax.bitcast_convert_type(rows[:, off : off + 2], dtype)
+    v = rows[:, off]
+    if dtype == jnp.float32:
+        return jax.lax.bitcast_convert_type(v, dtype)
+    return v.astype(dtype)
+
+
 def migrate(p, offset, blocks_per_shard, n_shards, K, axis_name):
     """One round of all_to_all particle migration. Particles flagged in transit
     (block outside the local range) are grouped by destination shard via a stable
@@ -93,13 +127,10 @@ def migrate(p, offset, blocks_per_shard, n_shards, K, axis_name):
     ok_sorted = (sdest < n_shards) & (rank_sorted < K)
     slot_sorted = jnp.where(ok_sorted, sdest * K + rank_sorted, n_shards * K)
 
-    # Pack all fields through the permutation with ONE row gather (see
-    # ops/pallas_grid._permute_pack: separate per-field gathers lower ~4x
-    # slower on TPU). One small index scatter builds slot -> source; unfilled
-    # slots read the appended zero row (valid=False). The dtype-preserving
-    # pack carries 64-bit fields (precision = f64) as two i32 lanes.
-    from ..ops.pallas_grid import _pack_cols, _unpack_col
-
+    # Pack all fields through the permutation with ONE row gather. One small
+    # index scatter builds slot -> source; unfilled slots read the appended
+    # zero row (valid=False). The dtype-preserving pack carries 64-bit fields
+    # (precision = f64) as two i32 lanes.
     src_of_slot = (
         jnp.full((n_shards * K,), cap, jnp.int32)
         .at[slot_sorted]
@@ -246,37 +277,11 @@ def _fixup_subface_arrivals(p, coefs_local, mesh, prm, offset, n_local, key):
     )
 
 
-def _spatial_pallas_ok(jb, mesh, prm, n_shards, opacity, scattering):
-    """Kernel gating for the spatial census rounds, mirroring
-    ``step.py::_pallas_ok``: returns ``(kind, interpret)`` — kind "grid"
-    (uniform mesh, z-slab shard ownership, halo-slab straggler fix) or
-    "bucketed" (block-region slabs, any mesh) — or None for the XLA loop."""
-    from ..ops import pallas_bucketed as pb
-    from ..ops import pallas_grid as pg
-
-    # frequency-dependent models run the kernels too: the round builders ship
-    # (rho, T, fleck) slabs and the kernels evaluate the models per refresh at
-    # the particle's photon energy (same surface as step.py's single-shard path)
-    if jb.use_pallas == "off" or jb.dtype != jnp.float32:
-        return None
-    if pg.supports_spatial(mesh, prm, n_shards):
-        kind = "grid"
-    elif pb.supports_spatial(mesh, prm, n_shards):
-        kind = "bucketed"
-    else:
-        return None
-    on_tpu = jax.default_backend() == "tpu"
-    if jb.use_pallas == "on":
-        return kind, not on_tpu
-    return (kind, False) if on_tpu else None
-
-
 def build_spatial_step_core(mesh, cfg: RunConfig, n_shards: int, axis_name="shard"):
     """Per-cycle step body for ``shard_map``: fields AND particles sharded by
     owning block, census via migration rounds + psum completion. The per-round
-    local transport runs the bucketed Pallas kernel when supported (VERDICT r2
-    #1 — the reference runs its device hot loop at full speed between comms,
-    ``jaybenne.cpp:113-131`` + ``transport.cpp:67-70``), else the XLA loop."""
+    local transport is the XLA event loop with ``block_offset`` (the census
+    kernel does not cover this decomposition; ``use_pallas = on`` raises)."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -285,9 +290,7 @@ def build_spatial_step_core(mesh, cfg: RunConfig, n_shards: int, axis_name="shar
     dtype = jb.dtype
     prm = make_transport_params(cfg, dtype)
     periodic = cfg.mesh.periodic_flags
-    kernel_mode = _spatial_pallas_ok(
-        jb, mesh, prm, n_shards, opacity, scattering
-    )
+    census_path(jb.use_pallas, dtype, spatial=True)  # raises for on/interpret
 
     B = mesh.n_blocks
     Bl = -(-B // n_shards)  # blocks per shard (last shard may own padding)
@@ -402,54 +405,28 @@ def build_spatial_step_core(mesh, cfg: RunConfig, n_shards: int, axis_name="shar
         K = jb.migration_buffer_k or max(64, p.capacity // (2 * n_shards))
         max_rounds = jb.max_migration_rounds
 
-        if kernel_mode is not None:
-            kind, interp = kernel_mode
-            nongray = coefs_local.opacity is not None
-            models = dict(
-                nongray=nongray,
-                opacity=coefs_local.opacity, scattering=coefs_local.scattering,
+        # Per-round iteration budget (census_iters_per_round): without it a
+        # round drains to LOCAL completion while migrated-out lanes idle,
+        # so k-hop particles cost ~(k+1) full census lengths on the worst
+        # device; with it the rounds interleave. The budget never fails a
+        # step — lanes unfinished at the cap simply continue next round —
+        # so cap_hits below keeps counting only the real hang backstop.
+        prm_round = prm
+        if can_migrate and jb.census_iters_per_round > 0:
+            budget = min(jb.census_iters_per_round, prm.max_iters)
+            prm_round = dataclasses.replace(prm, max_iters=budget)
+            # budget-truncated rounds must not eat the migration-round
+            # allowance: the unbudgeted path grants max_transport_iterations
+            # PER round for up to max_migration_rounds rounds, so scale the
+            # round cap to keep the same total-iteration backstop (it is a
+            # hang backstop only — the loop exits at unfinished == 0)
+            max_rounds = max_rounds * -(-prm.max_iters // budget)
+
+        def local_transport(p, rounds):
+            return transport_ops.transport(
+                p, coefs_local, mesh, rng.fold(k_tr, rounds), prm_round, dt,
+                block_offset=offset,
             )
-            if kind == "grid":
-                from ..ops import pallas_grid as pg
-
-                build_tables, kernel_round = pg.make_spatial_grid(
-                    mesh, prm, n_shards, p.capacity, interpret=interp, **models
-                )
-            else:
-                from ..ops import pallas_bucketed as pb
-
-                build_tables, kernel_round = pb.make_spatial_transport(
-                    mesh, prm, n_shards, p.capacity, interpret=interp, **models
-                )
-            tables = build_tables(coefs_local, shard)
-
-            def local_transport(p, rounds):
-                return kernel_round(
-                    p, tables, rng.fold(k_tr, rounds), rounds, dt
-                )
-        else:
-            # Per-round iteration budget (census_iters_per_round): without it a
-            # round drains to LOCAL completion while migrated-out lanes idle,
-            # so k-hop particles cost ~(k+1) full census lengths on the worst
-            # device; with it the rounds interleave. The budget never fails a
-            # step — lanes unfinished at the cap simply continue next round —
-            # so cap_hits below keeps counting only the real hang backstop.
-            prm_round = prm
-            if can_migrate and jb.census_iters_per_round > 0:
-                budget = min(jb.census_iters_per_round, prm.max_iters)
-                prm_round = dataclasses.replace(prm, max_iters=budget)
-                # budget-truncated rounds must not eat the migration-round
-                # allowance: the unbudgeted path grants max_transport_iterations
-                # PER round for up to max_migration_rounds rounds, so scale the
-                # round cap to keep the same total-iteration backstop (it is a
-                # hang backstop only — the loop exits at unfinished == 0)
-                max_rounds = max_rounds * -(-prm.max_iters // budget)
-
-            def local_transport(p, rounds):
-                return transport_ops.transport(
-                    p, coefs_local, mesh, rng.fold(k_tr, rounds), prm_round, dt,
-                    block_offset=offset,
-                )
 
         def round_body(carry):
             p, rounds, iters_acc, ev_acc, drop_acc, sent_acc, hit_acc, _ = carry

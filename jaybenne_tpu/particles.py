@@ -1,6 +1,6 @@
 """Fixed-capacity SoA photon ledger.
 
-TPU-native replacement for Parthenon's per-block ``Swarm`` pools (SURVEY §2c "the big
+JAX replacement for Parthenon's per-block ``Swarm`` pools (SURVEY §2c "the big
 one"): one flat struct-of-arrays ledger with an ``alive`` mask instead of per-block
 pools with defrag. Slots are recycled by rank-order free-slot assignment at sourcing
 time (a sort/prefix-sum, replacing ``AddEmptyParticles``/``Defrag``); particle death

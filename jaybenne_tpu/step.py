@@ -1,6 +1,6 @@
 """The radiation step: one full cycle from t to t + dt.
 
-TPU-native equivalent of ``jaybenne::RadiationStep``
+Equivalent of ``jaybenne::RadiationStep``
 (``/root/reference/src/jaybenne/jaybenne.cpp:68-151``). The reference builds a
 Parthenon task graph (derived fields -> sourcing -> [ddmc ghost exchange] ->
 iterative {transport -> swarm comms -> completion check} -> tally -> fluid update);
@@ -19,12 +19,11 @@ not exist (neighbor data is gathered positionally where needed).
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
 
-from .config import RunConfig
+from .config import USE_PALLAS_MODES, RunConfig
 from .ops import fleck as fleck_ops
 from .ops import sourcing, tally
 from .ops import transport as transport_ops
@@ -66,29 +65,38 @@ def make_transport_params(cfg: RunConfig, dtype) -> transport_ops.TransportParam
     )
 
 
-_TIMING_KNOBS = (
-    "JB_SKIP_TRANSPORT", "JB_SKIP_KERNEL", "JB_SKIP_SLABS",
-    "JB_SKIP_RESTORE", "JB_FLOOR_ITERS",
-)
-_warned_timing_knobs = False
+def census_path(use_pallas: str, dtype, spatial: bool = False):
+    """The one census-path selector: ``"kernel"`` (the Pallas census kernel,
+    compiled for the GPU), ``"interpret"`` (the same kernel in the Pallas
+    interpreter — an explicit deck value that only tests use), or ``None``
+    (the XLA event loop).
 
-
-def _warn_timing_knobs():
-    """Timing-only skip/floor knobs produce PHYSICALLY WRONG results that still
-    look plausible (the step completes, tallies populate). A leaked env var in
-    a production or CI run must not pass silently — warn loudly, once."""
-    global _warned_timing_knobs
-    active = [k for k in _TIMING_KNOBS if os.environ.get(k)]
-    if active and not _warned_timing_knobs:
-        _warned_timing_knobs = True
-        import sys
-
-        print(
-            "WARNING: timing-only diagnostic knob(s) active — results are "
-            f"PHYSICALLY WRONG: {', '.join(active)}",
-            file=sys.stderr, flush=True,
+    ``auto`` takes the kernel on a GPU wherever it applies (float32, not the
+    spatial decomposition's census rounds) and the XLA loop elsewhere. ``on``
+    and ``interpret`` never fall back: where the kernel cannot run they raise."""
+    if use_pallas not in USE_PALLAS_MODES:
+        raise ValueError(
+            f"jaybenne/use_pallas must be one of {USE_PALLAS_MODES}, got {use_pallas!r}"
         )
-    return active
+    if use_pallas == "off":
+        return None
+    applies = jnp.dtype(dtype) == jnp.float32 and not spatial
+    on_gpu = jax.default_backend() == "gpu"
+    if use_pallas == "auto":
+        return "kernel" if (applies and on_gpu) else None
+    if not applies:
+        raise ValueError(
+            f"jaybenne/use_pallas = {use_pallas}: the census kernel runs float32 "
+            "particle-sharded or single-device census loops only "
+            f"(precision = {jnp.dtype(dtype).name}, spatial = {spatial})"
+        )
+    if use_pallas == "on" and not on_gpu:
+        raise RuntimeError(
+            "jaybenne/use_pallas = on needs a GPU, but JAX's backend is "
+            f"{jax.default_backend()!r} (use 'interpret' to run the kernel in "
+            "the Pallas interpreter)"
+        )
+    return "kernel" if use_pallas == "on" else "interpret"
 
 
 def make_radiation_step(mesh, cfg: RunConfig):
@@ -104,9 +112,7 @@ def build_step_core(
     With ``axis_name`` set, the function is meant to run inside ``shard_map`` over a
     particle-sharded ledger: fields/mesh are replicated, each shard sources
     ``num_particles`` births (the per-shard share), transport needs zero
-    communication, and tallies are ``psum``-ed — the TPU-first distribution strategy
-    (SURVEY §2d/§5 mapping)."""
-    _warn_timing_knobs()
+    communication, and tallies are ``psum``-ed (SURVEY §2d/§5 mapping)."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -128,38 +134,7 @@ def build_step_core(
         if ext_num is None:
             ext_num = jb.external_source_num or jb.num_particles
 
-    def _pallas_ok(p):
-        """(mode, interpret): mode is 'full' (VMEM-resident census kernel),
-        'grid' (uniform-mesh global-cell bucketed kernel), 'bucketed'
-        (block-region bucketed kernel: big SMR meshes), or None (XLA loop).
-        'on' off-TPU runs the kernel in the Pallas interpreter, which lets the
-        full step exercise the kernel in CPU CI."""
-        from .ops import pallas_bucketed as pb
-        from .ops import pallas_grid as pg
-        from .ops import pallas_transport as pt
-
-        if jb.use_pallas == "off" or dtype != jnp.float32:
-            return None, False
-        mode = None
-        if p.capacity % pt.TILE == 0 and pt.supports(mesh, prm):
-            # the VMEM mega-kernel also covers frequency-DEPENDENT models:
-            # it gathers (rho, T, fleck) and evaluates the (pure-jnp) model
-            # per event at the particle energy, like the reference
-            # (transport.cpp:122-127)
-            mode = "full"
-        elif p.capacity % pg.BTILE == 0 and pg.supports(mesh, prm):
-            # the grid and bucketed kernels cover frequency-dependent models
-            # too: they ship (rho, T, fleck) slabs and evaluate the models
-            # per refresh at the particle's (constant) photon energy
-            mode = "grid"
-        elif p.capacity % pb.BTILE == 0 and pb.supports(mesh, prm):
-            mode = "bucketed"
-        if mode is None:
-            return None, False
-        on_tpu = jax.default_backend() == "tpu"
-        if jb.use_pallas == "on":
-            return mode, not on_tpu
-        return (mode if on_tpu else None), False
+    path = census_path(jb.use_pallas, dtype)
 
     def step(state, dt):
         # jax.named_scope regions are the trace-annotation analog of the reference's
@@ -244,53 +219,31 @@ def build_step_core(
             coefs = transport_ops.precompute_coefs(
                 f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype
             )
-            pallas_mode, pallas_interp = _pallas_ok(p)
-            if os.environ.get("JB_SKIP_TRANSPORT"):
-                # diagnostic (timing only): the whole census loop as identity
-                # — isolates the non-transport step machinery's cost
-                p = dataclasses.replace(p, tau=jnp.ones_like(p.tau))
-                iters = events = jnp.zeros((), jnp.int32)
-            elif pallas_mode == "full":
-                from .ops.pallas_transport import transport_pallas
-
-                p, iters, events = transport_pallas(
-                    p, coefs, mesh, k_tr, prm, dt, interpret=pallas_interp
-                )
-            elif pallas_mode == "grid":
-                from .ops.pallas_grid import transport_grid
-
-                p, iters, events = transport_grid(
-                    p, coefs, mesh, k_tr, prm, dt, interpret=pallas_interp
-                )
-            elif pallas_mode == "bucketed":
-                from .ops.pallas_bucketed import transport_bucketed
-
-                p, iters, events = transport_bucketed(
-                    p, coefs, mesh, k_tr, prm, dt, interpret=pallas_interp
-                )
-            else:
+            if path is None:
                 p, iters, events = transport_ops.transport(
                     p, coefs, mesh, k_tr, prm, dt
                 )
+            else:
+                from .ops.pallas_census import transport_kernel
+
+                p, iters, events = transport_kernel(
+                    p, coefs, mesh, k_tr, prm, dt, interpret=path == "interpret"
+                )
             # exact census-incomplete signal, path-independent: survivors
             # still short of end-of-step (tau < 1) when transport returned.
-            # Computed BEFORE the tau reset below. The bucketed kernels'
-            # ``iters`` accumulates over bucket rounds, so only the per-call
-            # paths (XLA loop, mega-kernel) can compare it to the cap.
+            # Computed BEFORE the tau reset below.
             unfinished = jnp.sum(
                 (p.alive & (p.tau < jnp.asarray(1.0, p.tau.dtype))).astype(
                     jnp.int32
                 )
             )
-            per_call_cap = pallas_mode in (None, "full")
 
         # absorption deposition + 4. radiation tally (jaybenne.cpp:134)
         with jax.named_scope("jaybenne.tally"):
             if prm.has_absorption:
                 # statically no absorption model -> the absorbed mask is
                 # provably all-false; skip the capacity-sized segment_sum
-                # (measured ~8 ms at 663k rows on v5e) instead of summing
-                # zeros every step
+                # instead of summing zeros every step
                 f = tally.accumulate_absorption(f, p, mesh, axis_name)
             f = tally.evaluate_radiation_energy(f, p, mesh, axis_name)
 
@@ -324,10 +277,7 @@ def build_step_core(
             new_state = dataclasses.replace(
                 new_state, overflow=state.overflow + dropped
             )
-        if per_call_cap:
-            cap_hits = (iters >= prm.max_iters).astype(jnp.int32)
-        else:
-            cap_hits = jnp.zeros((), jnp.int32)
+        cap_hits = (iters >= prm.max_iters).astype(jnp.int32)
         stats = StepStats(
             iterations=iters,
             events=events,

@@ -2,7 +2,7 @@
 //
 // The reference delegates all host-side mesh graph construction (block forest,
 // static refinement, 2:1 balance, neighbor/ownership structure) to Parthenon's
-// C++ Mesh machinery (SURVEY §2c). This is the TPU-native equivalent: a small
+// C++ Mesh machinery (SURVEY §2c). This is the native equivalent: a small
 // C++ runtime component that builds the block forest and the finest-granularity
 // position->block lookup grid consumed by the JAX kernels. Loaded from Python via
 // ctypes (jaybenne_tpu/mesh.py), with a pure-Python fallback producing identical

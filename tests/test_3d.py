@@ -1,7 +1,8 @@
 """3D validation (VERDICT r2 #3): the 3D code paths — z crossings, 6-face DDMC
 leakage, the 4-subface quad resample mirroring the reference's ``SampleFace3D``
-(``sample_ddmc_bface.cpp:43-78,241-424``) — exercised directly and through the
-kernels in interpret mode. The end-to-end 3D acceptance gate is
+(``sample_ddmc_bface.cpp:43-78,241-424``) — exercised directly here and through
+the census kernel in ``tests/test_census_kernel.py``. The end-to-end 3D
+acceptance gate is
 ``tst/stepdiff_3d.py`` on ``inputs/stepdiff_3d_smr_ddmc.in``."""
 
 import dataclasses
@@ -90,7 +91,6 @@ x2max = 0.25
 x3min = -0.25
 x3max = 0.25
 """
-
 
 
 def _cfg(extra=None, refined=False):
@@ -278,76 +278,6 @@ def test_xla_3d_ddmc_six_face_leak():
     dk = np.asarray(out.k) - np.asarray(p.k)
     for d in (di, dj, dk):
         assert (d[alive] > 0).any() and (d[alive] < 0).any()
-
-
-# ------------------------------------------------------------- kernels in 3D
-def test_grid_kernel_3d_interpret_matches_xla():
-    """Uniform 3D mesh through the global-cell grid kernel (interpret): same
-    moments as the XLA loop, z crossings and periodic y/z wraps in-kernel."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    cfg = _cfg()
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    assert pg.supports(mesh, prm)
-    n = 4000
-    cap = pg.BTILE * ((n + pg.BTILE - 1) // pg.BTILE)
-    p = _center_particles(mesh, n, jr.PRNGKey(0), cap=cap)
-    coefs = _coefs(mesh, 1.0e3, prm)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = pg.transport_grid(
-        p, coefs, mesh, jr.PRNGKey(1), prm, dt, interpret=True
-    )
-    px_, _, ev_x = T.transport(p, coefs, mesh, jr.PRNGKey(1), prm, dt)
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    mom = {}
-    for name, out in (("grid", pp), ("xla", px_)):
-        alive = np.asarray(out.alive)
-        g = [np.asarray(a)[alive] for a in out.global_position(mesh)]
-        mom[name] = np.array([g[0].std(), g[1].std(), g[2].std()])
-    assert np.allclose(mom["grid"], mom["xla"], rtol=0.1)
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_bucketed_kernel_3d_smr_ddmc_interpret():
-    """3D SMR + DDMC through the bucketed kernel (interpret): coarse->fine quad
-    leaks pause with a pending code and resample host-side; census completes and
-    statistics match the XLA loop."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-
-    pb.REGION_CELLS_IMC = 512
-    pb.REGION_CELLS_DDMC = 512
-    cfg = _cfg(
-        {"jaybenne/use_ddmc": "true", "jaybenne/dt": "4.e-12",
-         "mcblock/scattering_constant_value": "2.0e4"},
-        refined=True,
-    )
-    mesh = build_mesh(cfg.mesh)
-    assert mesh.max_level == 1
-    prm = make_transport_params(cfg, jnp.float32)
-    assert pb.supports(mesh, prm)
-    n = 2000
-    cap = pb.BTILE * ((n + pb.BTILE - 1) // pb.BTILE)
-    p = _center_particles(mesh, n, jr.PRNGKey(2), cap=cap)
-    coefs = _coefs(mesh, 2.0e4, prm, cfg.jaybenne.tau_ddmc)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pb.transport_bucketed(
-        p, coefs, mesh, jr.PRNGKey(3), prm, dt, interpret=True
-    )
-    px_, _, _ = T.transport(p, coefs, mesh, jr.PRNGKey(3), prm, dt)
-    for out, name in ((pp, "bucketed"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-        assert (np.asarray(out.leak)[alive] == 0).all(), name
-    gp = [np.asarray(a)[np.asarray(pp.alive)] for a in pp.global_position(mesh)]
-    gx_ = [np.asarray(a)[np.asarray(px_.alive)] for a in px_.global_position(mesh)]
-    for a, b in zip(gp, gx_):
-        assert abs(a.mean() - b.mean()) < 0.02
-        assert abs(a.std() - b.std()) / max(b.std(), 1e-9) < 0.25
 
 
 # ------------------------------------------------------------------- e2e gate

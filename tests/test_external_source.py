@@ -2,7 +2,7 @@
 
 The reference sources photons only from the matter Planck field
 (``/root/reference/src/jaybenne/sourcing.cpp``); ``jaybenne/external_source``
-is a TPU-build extension injecting radiation at a fixed energy-density rate
+is an extension of this build injecting radiation at a fixed energy-density rate
 inside a box while ``t < tmax`` — the configuration of the Su & Olson (1996)
 non-equilibrium benchmark family. Gates here are closed-form:
 
@@ -129,22 +129,6 @@ def test_external_source_conservation_spatial_concentrated():
             "jaybenne/n_devices": 8,
             "jaybenne/decomposition": "spatial",
             "parthenon/meshblock/nx1": 2,
-        }
-    )
-
-
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs 2 (virtual) devices")
-def test_external_source_conservation_spatial_kernel():
-    """Spatial mode through the bucketed Pallas census kernel (interpret mode):
-    absorbed-but-untallied rows must survive mid-round migration inserts
-    (the reserved-slot guard in particles.insert_particles) on the kernel
-    path exactly as on the XLA path."""
-    _run_conservation(
-        {
-            "jaybenne/n_devices": 2,
-            "jaybenne/decomposition": "spatial",
-            "parthenon/meshblock/nx1": 4,
-            "jaybenne/use_pallas": "on",
         }
     )
 

@@ -348,6 +348,9 @@ def test_restart_rehomes_particles_onto_owning_shards(tmp_path):
             "parthenon/time/tlim": "4.e-11",
             "jaybenne/decomposition": "spatial",
             "jaybenne/n_devices": 2,
+            # one block: shard 0 owns every particle for the whole run, so
+            # its half of the ledger must hold them all (restored + births)
+            "jaybenne/capacity_factor": 16,
         }),
         outdir=str(tmp_path), quiet=True, restart=ck,
     )

@@ -1,9 +1,9 @@
-"""Pallas census-kernel tests via the interpreter (CPU-runnable).
+"""Census-kernel tests via the Pallas interpreter (CPU-runnable).
 
-The compiled kernel is exercised on real TPU hardware by bench.py and the TPU
-regression runs; here the SAME kernel body runs in the Pallas interpreter and is
-cross-checked against the XLA event loop on identical initial states (different RNG
-streams — statistical agreement)."""
+The compiled kernel runs on the GPU in chip_smoke.py and the GPU-marked tests;
+here the SAME kernel body runs in the Pallas interpreter and is cross-checked
+against the XLA event loop on identical initial states (different RNG streams —
+statistical agreement)."""
 
 import dataclasses
 import os
@@ -20,30 +20,11 @@ from jaybenne_tpu.mesh import build_mesh
 from jaybenne_tpu.particles import empty_ledger
 from jaybenne_tpu.step import make_transport_params
 from jaybenne_tpu.ops import transport as T
-from jaybenne_tpu.ops.pallas_transport import TILE, supports, transport_pallas
+from jaybenne_tpu.ops.pallas_census import transport_kernel
 from jaybenne_tpu.utils.deck import Deck
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _restore_region_sizes():
-    """Tests shrink the bucketing-region targets (pb/pg.REGION_CELLS_*) so
-    interpret-mode compiles stay affordable; restore the production values
-    afterwards so later tests in the same process see the shipped layout."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    saved = [
-        (mod, name, getattr(mod, name))
-        for mod in (pb, pg)
-        for name in ("REGION_CELLS_IMC", "REGION_CELLS_DDMC")
-    ]
-    try:
-        yield
-    finally:
-        for mod, name, val in saved:
-            setattr(mod, name, val)
+CAP = 16384  # ledger capacity of the direct-kernel cases
 
 
 DECK = """
@@ -88,14 +69,14 @@ initial_radiation = thermal
 """
 
 
+
 def _setup(sigma_s=2.0e2):
     cfg = cm.from_deck(Deck.parse(DECK))
     mesh = build_mesh(cfg.mesh)
     prm = make_transport_params(cfg, jnp.float32)
-    assert supports(mesh, prm)
     n = 4000
     key = jr.PRNGKey(0)
-    p = empty_ledger(TILE)
+    p = empty_ledger(CAP)
     dxc = 1.0 / 100
     ks = jr.split(key, 4)
     nx_, ny_, nz_ = (
@@ -130,7 +111,7 @@ def _setup(sigma_s=2.0e2):
 def test_pallas_interpret_matches_xla():
     cfg, mesh, prm, p, coefs, key = _setup()
     dt = jnp.float32(cfg.jaybenne.dt)
-    pp, it_p, ev_p = transport_pallas(p, coefs, mesh, key, prm, dt, interpret=True)
+    pp, it_p, ev_p = transport_kernel(p, coefs, mesh, key, prm, dt, interpret=True)
     px_, it_x, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
 
     for out, name in ((pp, "pallas"), (px_, "xla")):
@@ -163,7 +144,6 @@ def test_pallas_interpret_ddmc_matches_xla():
     )
     mesh = build_mesh(cfg.mesh)
     prm = make_transport_params(cfg, jnp.float32)
-    assert supports(mesh, prm)
     _, _, _, p, coefs, key = _setup(sigma_s=1.0e3)
     sig = jnp.full((mesh.n_blocks, 1, 1, mesh.nx), 1.0e3)
     px, py, pz = F.ddmc_face_probs(
@@ -171,7 +151,7 @@ def test_pallas_interpret_ddmc_matches_xla():
     )
     coefs = dataclasses.replace(coefs, px=px, py=py, pz=pz)
     dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = transport_pallas(p, coefs, mesh, key, prm, dt, interpret=True)
+    pp, _, ev_p = transport_kernel(p, coefs, mesh, key, prm, dt, interpret=True)
     px_, _, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
     for out in (pp, px_):
         alive = np.asarray(out.alive)
@@ -184,8 +164,8 @@ def test_pallas_interpret_ddmc_matches_xla():
 
 
 def test_pallas_interpret_smr_conserves_energy():
-    """Chunked-table + mixed-level path: a 20-block SMR mesh through the kernel
-    conserves energy exactly and agrees with the XLA path's totals."""
+    """Mixed-level path: a 20-block SMR mesh through the kernel conserves
+    energy exactly and agrees with the XLA path's totals."""
     from jaybenne_tpu.driver import Simulation
 
     mods = {
@@ -196,16 +176,11 @@ def test_pallas_interpret_smr_conserves_energy():
         "mcblock/scattering_constant_value": "2.0e2",
     }
     totals = {}
-    for mode in ("on", "off"):
+    for mode in ("interpret", "off"):
         deck = Deck.from_file(
             os.path.join(_ROOT, "inputs/stepdiff_smr.in")
         ).update({**mods, "jaybenne/use_pallas": mode})
         sim = Simulation(cm.from_deck(deck), quiet=True)
-        if mode == "on":
-            from jaybenne_tpu.ops import pallas_transport as pt
-
-            assert pt.supports(sim.mesh, make_transport_params(sim.cfg, jnp.float32))
-            assert pt._n_chunks(sim.mesh) == 10  # exercises chunked gathers
         sim.run()
         dv = np.asarray(sim.mesh.block_volume)[:, None, None, None]
         p = sim.state.particles
@@ -213,18 +188,18 @@ def test_pallas_interpret_smr_conserves_energy():
         e = float((np.asarray(sim.state.fields.energy_tally) * dv).sum())
         assert np.isclose(e, w, rtol=1e-5)  # tally == live weights exactly
         totals[mode] = w
-    assert np.isclose(totals["on"], totals["off"], rtol=1e-5)
+    assert np.isclose(totals["interpret"], totals["off"], rtol=1e-5)
 
 
 def _run_smr_conservation(deck_file, mods, expect_max_level):
-    """Run use_pallas on/off on an SMR deck; assert exact tally==weights
+    """Run use_pallas interpret/off on an SMR deck; assert exact tally==weights
     conservation on each path and cross-path total agreement. Returns the mesh
     so callers can assert forest structure."""
     from jaybenne_tpu.driver import Simulation
 
     totals = {}
     mesh = None
-    for mode in ("on", "off"):
+    for mode in ("interpret", "off"):
         deck = Deck.from_file(
             os.path.join(_ROOT, deck_file)
         ).update({**mods, "jaybenne/use_pallas": mode})
@@ -238,7 +213,7 @@ def _run_smr_conservation(deck_file, mods, expect_max_level):
         e = float((np.asarray(sim.state.fields.energy_tally) * dv).sum())
         assert np.isclose(e, w, rtol=1e-5)  # tally == live weights exactly
         totals[mode] = w
-    assert np.isclose(totals["on"], totals["off"], rtol=1e-5)
+    assert np.isclose(totals["interpret"], totals["off"], rtol=1e-5)
     return mesh
 
 
@@ -285,7 +260,7 @@ def test_pallas_interpret_absorption():
         coefs, sigma_a=jnp.full((NC,), 0.5), fleck=jnp.full((NC,), 0.7)
     )
     dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = transport_pallas(p, coefs, mesh, key, prm, dt, interpret=True)
+    pp, _, _ = transport_kernel(p, coefs, mesh, key, prm, dt, interpret=True)
     alive = np.asarray(pp.alive)
     absorbed = np.asarray(pp.absorbed)
     assert absorbed.sum() > 0
@@ -297,12 +272,12 @@ def test_pallas_interpret_absorption():
 
 
 def test_rare_absorption_unbiased():
-    """Probability-threshold draws in the kernels must be 23-bit, not 16-bit.
+    """Probability-threshold draws in the kernel must be 23-bit, not 16-bit.
 
     With sigma_a/sigma_t ~ 7.5e-6 (scattering-dominated, like ``inf.in``'s
     1/1e5), a 16-bit branch uniform quantizes the absorption probability to
-    P(u16 < p) = 1/65536 — a +103% bias at this ratio (it tripped the inf.in
-    TPU gate at +53%). The 23-bit draw resolves p to 1.2e-7. Expected absorbed
+    P(u16 < p) = 1/65536 — a +103% bias at this ratio. The 23-bit draw
+    resolves p to 1.2e-7. Expected absorbed
     over one step: n*(1 - exp(-f*sigma_a*c*dt)) = 16000*0.0015 = 24, sd ~ 4.9;
     the gate at +-3.2 sd rejects the biased mean of ~49 at ~5 sd."""
     sigma_a, sigma_s = 0.0015, 200.0
@@ -331,7 +306,7 @@ def test_rare_absorption_unbiased():
     )
     coefs = dataclasses.replace(coefs, sigma_a=jnp.full((NC,), sigma_a))
     dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = transport_pallas(p, coefs, mesh, key, prm, dt, interpret=True)
+    pp, _, _ = transport_kernel(p, coefs, mesh, key, prm, dt, interpret=True)
     absorbed = int(np.asarray(pp.absorbed).sum())
     expect = n * (1.0 - np.exp(-sigma_a * c * float(dt)))  # c*dt = 1 cm
     sd = np.sqrt(expect)
@@ -343,7 +318,6 @@ def test_pallas_interpret_smr_ddmc_conserves_energy():
     resample and level-aware transitions (reference sample_ddmc_bface.cpp). Energy
     must be conserved exactly and totals must match the XLA path."""
     from jaybenne_tpu.driver import Simulation
-    from jaybenne_tpu.ops import pallas_transport as pt
 
     mods = {
         "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
@@ -352,16 +326,14 @@ def test_pallas_interpret_smr_ddmc_conserves_energy():
         "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "1.e-11",
     }
     totals = {}
-    for mode in ("on", "off"):
+    for mode in ("interpret", "off"):
         deck = Deck.from_file(
             os.path.join(_ROOT, "inputs/stepdiff_smr_ddmc.in")
         ).update({**mods, "jaybenne/use_pallas": mode})
         sim = Simulation(cm.from_deck(deck), quiet=True)
         assert sim.mesh.max_level > 0
-        if mode == "on":
-            prm = make_transport_params(sim.cfg, jnp.float32)
-            assert prm.use_ddmc
-            assert pt.supports(sim.mesh, prm)  # SMR+DDMC now kernel-covered
+        if mode == "interpret":
+            assert make_transport_params(sim.cfg, jnp.float32).use_ddmc
         sim.run()
         dv = np.asarray(sim.mesh.block_volume)[:, None, None, None]
         p = sim.state.particles
@@ -375,16 +347,15 @@ def test_pallas_interpret_smr_ddmc_conserves_energy():
         assert (np.asarray(p.j)[alive] >= 0).all()
         assert (np.asarray(p.j)[alive] < sim.mesh.ny).all()
         totals[mode] = w
-    assert np.isclose(totals["on"], totals["off"], rtol=1e-5)
+    assert np.isclose(totals["interpret"], totals["off"], rtol=1e-5)
 
 
 def test_uniform_view_remap_matches_lookup():
-    """The mega-kernel's uniform synthetic-block remap (_to_global_cells, a pure
-    reshape/transpose keyed on the (z, y, x) row-major block ordering) must
-    agree with the INDEPENDENT lookup-grid-based block->global mapping the grid
-    kernel uses (pallas_grid._to_global) on every uniform forest shape."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops import pallas_transport as pt
+    """The census kernel's uniform synthetic-block remap (_to_global_cells, a
+    pure reshape/transpose keyed on the (z, y, x) row-major block ordering)
+    must agree with an INDEPENDENT mapping built from each block's origin in
+    the mesh geometry, on every uniform forest shape."""
+    from jaybenne_tpu.ops import pallas_census as pc
 
     for mods in (
         {},  # 100 cells / 2 blocks (1D)
@@ -398,17 +369,29 @@ def test_uniform_view_remap_matches_lookup():
         mesh = build_mesh(cfg.mesh)
         assert mesh.max_level == 0 and mesh.n_blocks > 1
         v = jnp.arange(mesh.total_cells, dtype=jnp.int32)
-        got = np.asarray(pt._to_global_cells(v, mesh))
-        want = np.asarray(
-            pg._to_global(
-                mesh, v.reshape(mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+        got = np.asarray(pc._to_global_cells(v, mesh))
+        nrbz, nrby, nrbx = mesh.root_grid
+        NX, NY = nrbx * mesh.nx, nrby * mesh.ny
+        lo = np.asarray(mesh.bounds, np.float64)[[0, 2, 4]]
+        ext = np.asarray(mesh.block_dx, np.float64) * [mesh.nx, mesh.ny, mesh.nz]
+        want = np.empty(mesh.total_cells, np.int64)
+        k, j, i = np.meshgrid(
+            np.arange(mesh.nz), np.arange(mesh.ny), np.arange(mesh.nx),
+            indexing="ij",
+        )
+        for b in range(mesh.n_blocks):
+            ox, oy, oz = np.rint(
+                (np.asarray(mesh.block_origin[b], np.float64) - lo) / ext[b]
+            ).astype(int)
+            g = ((oz * mesh.nz + k) * NY + oy * mesh.ny + j) * NX + ox * mesh.nx + i
+            want[g.reshape(-1)] = b * mesh.ncells_per_block + np.arange(
+                mesh.ncells_per_block
             )
-        ).reshape(-1)
         assert np.array_equal(got, want), mods
 
 
 def test_pallas_uniform_view_3d():
-    """3D uniform multi-block forest through the mega-kernel's synthetic
+    """3D uniform multi-block forest through the census kernel's synthetic
     single-block path: the block/position round-trip must land every survivor
     back on a consistent (block, i, j, k, block-local position) tuple, and the
     diffusion statistics must match the XLA loop's."""
@@ -425,7 +408,6 @@ def test_pallas_uniform_view_3d():
     mesh = build_mesh(cfg.mesh)
     prm = make_transport_params(cfg, jnp.float32)
     assert mesh.n_blocks == 8 and mesh.max_level == 0
-    assert supports(mesh, prm)
     n = 4000
     c = 2.99792458e10
     ks = jr.split(jr.PRNGKey(3), 4)
@@ -436,7 +418,7 @@ def test_pallas_uniform_view_3d():
     )
     nrm = jnp.sqrt(nx_**2 + ny_**2 + nz_**2)
     dxc = 1.0 / 8
-    p = empty_ledger(TILE)
+    p = empty_ledger(CAP)
     # start in block 0, local cell (3, 3, 3) — adjacent to interior block faces
     # in every axis, so the synthetic view's cell tracking crosses them all
     p = dataclasses.replace(
@@ -463,7 +445,7 @@ def test_pallas_uniform_view_3d():
         pz=jnp.zeros((8, 5, 4, 4)),
     )
     dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = transport_pallas(p, coefs, mesh, jr.PRNGKey(1), prm, dt,
+    pp, _, _ = transport_kernel(p, coefs, mesh, jr.PRNGKey(1), prm, dt,
                                 interpret=True)
     px_, _, _ = T.transport(p, coefs, mesh, jr.PRNGKey(1), prm, dt)
     bdx = np.asarray(mesh.block_dx)
@@ -495,150 +477,6 @@ def test_pallas_uniform_view_3d():
         assert abs(g_p.std() - g_x.std()) / g_x.std() < 0.15, axis
 
 
-def _setup_big(nx_total=8192, nblk=256, sigma_s=2.0e2, n=4000, use_ddmc=False):
-    """A mesh past VMEM residency (32 blocks x 256 cells), with the region target
-    shrunk so multiple bucketing regions are exercised at a compile size interpret
-    mode can afford (production-size regions unroll 64-chunk gathers)."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-    from jaybenne_tpu.ops import fleck as F
-
-    pb.REGION_CELLS_IMC = 1024
-    pb.REGION_CELLS_DDMC = 1024
-
-    # c*dt spans ~80 cells: a particle does O(100) zone-capped events, not the
-    # O(nx) a domain-crossing dt would cost in interpret mode
-    deck = Deck.parse(DECK).update(
-        {
-            "parthenon/mesh/nx1": nx_total,
-            "parthenon/meshblock/nx1": nblk,
-            "jaybenne/use_ddmc": "true" if use_ddmc else "false",
-            "jaybenne/dt": "3.3e-13",
-            "parthenon/time/tlim": "3.3e-13",
-            "mcblock/scattering_constant_value": sigma_s,
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    assert not supports(mesh, prm)      # full-residency kernel refuses this mesh
-    assert pb.supports(mesh, prm)       # the bucketed kernel covers it
-    assert pb._region_layout(mesh)[1] >= 4  # multiple regions exercised
-
-    key = jr.PRNGKey(0)
-    p = empty_ledger(pb.BTILE * ((n + pb.BTILE - 1) // pb.BTILE))
-    dxc = 1.0 / nx_total
-    ks = jr.split(key, 4)
-    nx_, ny_, nz_ = (
-        1.0 - 2.0 * jr.uniform(ks[1], (n,)),
-        jr.uniform(ks[2], (n,)) - 0.5,
-        jr.uniform(ks[3], (n,)) - 0.5,
-    )
-    nrm = jnp.sqrt(nx_**2 + ny_**2 + nz_**2)
-    c = 2.99792458e10
-    # spread particles over the whole domain so every bucketing region is hot
-    cells = jr.randint(jr.PRNGKey(9), (n,), 0, nx_total)
-    blocks = cells // nblk
-    loc = cells % nblk
-    p = dataclasses.replace(
-        p,
-        x=p.x.at[:n].set((loc + jr.uniform(ks[0], (n,))) * (dxc * nblk / nblk)),
-        vx=p.vx.at[:n].set(c * nx_ / nrm),
-        vy=p.vy.at[:n].set(c * ny_ / nrm),
-        vz=p.vz.at[:n].set(c * nz_ / nrm),
-        block=p.block.at[:n].set(blocks),
-        i=p.i.at[:n].set(loc),
-        alive=p.alive.at[:n].set(True),
-        weight=p.weight.at[:n].set(1.0),
-    )
-    NC = mesh.total_cells
-    B = mesh.n_blocks
-    coefs = T.TransportCoefs(
-        sigma_a=jnp.zeros((NC,)),
-        sigma_s=jnp.full((NC,), float(sigma_s)),
-        fleck=jnp.ones((NC,)),
-        px=jnp.zeros((B, 1, 1, nblk + 1)),
-        py=jnp.zeros((B, 1, 2, nblk)),
-        pz=jnp.zeros((B, 2, 1, nblk)),
-    )
-    if use_ddmc:
-        sig = jnp.full((B, 1, 1, nblk), float(sigma_s))
-        px, py, pz = F.ddmc_face_probs(
-            mesh, sig, cfg.jaybenne.tau_ddmc, (False, False, False), jnp.float32
-        )
-        coefs = dataclasses.replace(coefs, px=px, py=py, pz=pz)
-    return cfg, mesh, prm, p, coefs, key, n
-
-
-def test_bucketed_interpret_matches_xla():
-    """Bucketed region kernel on an 8192-cell mesh (beyond VMEM residency): full
-    census, nothing lost, same diffusion statistics as the XLA loop."""
-    from jaybenne_tpu.ops.pallas_bucketed import transport_bucketed
-
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, it_p, ev_p = transport_bucketed(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, it_x, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-
-    for out, name in ((pp, "bucketed"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_bucketed_sigma_refresh_matches_xla(monkeypatch):
-    """Sigma-refresh cadence in the BUCKETED kernel (mirrors the grid kernel's:
-    coefficient slab scans under a scalar cond every SIGMA_REFRESH iterations;
-    lanes whose block/cell changed stall until the next refresh): census
-    complete, nothing lost, statistics unchanged vs the XLA loop. Forced on
-    here (test regions are small enough that the cadence would normally be
-    disabled)."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops.pallas_bucketed import transport_bucketed
-
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = transport_bucketed(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-
-    for out, name in ((pp, "bucketed"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_bucketed_sigma_refresh_ddmc(monkeypatch):
-    """Sigma-refresh + DDMC in the bucketed kernel: the 6 face-prob tiles ride
-    the refresh carry and stalled lanes interleave with leak/albedo events."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops.pallas_bucketed import transport_bucketed
-
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = transport_bucketed(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
 def test_grazing_block_crossing_no_spin():
     """Regression: a particle crossing a block face with a grazing (near-zero
     normal velocity) crossing must not be re-homed into the block it just left.
@@ -668,12 +506,11 @@ def test_grazing_block_crossing_no_spin():
     cfg = cm.from_deck(deck)
     mesh = build_mesh(cfg.mesh)
     prm = make_transport_params(cfg, jnp.float32)
-    assert supports(mesh, prm)
     n = 64
     c = 2.99792458e10
     dxb = np.float32(mesh.block_dx[0, 0])
     face = np.float32(8.0) * dxb  # block 0's upper x face, block-local
-    p = empty_ledger(TILE)
+    p = empty_ledger(CAP)
     p = dataclasses.replace(
         p,
         x=p.x.at[:n].set(face),
@@ -699,7 +536,7 @@ def test_grazing_block_crossing_no_spin():
         pz=jnp.zeros((B, 2, 8, 8)),
     )
     dt = jnp.float32(2.0e-12)
-    pp, iters, _ = transport_pallas(
+    pp, iters, _ = transport_kernel(
         p, coefs, mesh, jr.PRNGKey(3), prm, dt, interpret=True
     )
     alive = np.asarray(pp.alive)
@@ -707,565 +544,6 @@ def test_grazing_block_crossing_no_spin():
     assert not (np.asarray(pp.tau)[alive] < 1.0).any()
     # a spin would burn the full max_transport_iterations budget
     assert int(iters) < 500, int(iters)
-
-
-def test_grid_interpret_matches_xla():
-    """Uniform-mesh global-cell kernel on a mesh beyond VMEM residency: full
-    census, nothing lost, same diffusion statistics as the XLA loop."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    pg.REGION_CELLS_IMC = 1024
-    pg.REGION_CELLS_DDMC = 1024
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    assert pg.supports(mesh, prm)
-    assert pg._grid_layout(mesh)[1][0] >= 4  # multiple regions in x
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, it_p, ev_p = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, it_x, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-    # cells stay consistent with positions
-    assert (np.asarray(pp.i)[np.asarray(pp.alive)] >= 0).all()
-    assert (np.asarray(pp.i)[np.asarray(pp.alive)] < mesh.nx).all()
-
-
-def test_grid_sigma_refresh_matches_xla(monkeypatch):
-    """The sigma-refresh cadence (coefficient gathers under a scalar cond
-    every SIGMA_REFRESH iterations; cell-changed lanes stall until the next
-    refresh) must leave the census complete, nothing lost, and statistics
-    unchanged vs the XLA loop. Forced on here (test regions are small enough
-    that the cadence would normally be disabled)."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, it_p, ev_p = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, it_x, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-    assert (np.asarray(pp.i)[np.asarray(pp.alive)] >= 0).all()
-
-
-def test_grid_interpret_ddmc():
-    """DDMC through the uniform-grid kernel (thick cells, cross-region leaks)."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    pg.REGION_CELLS_IMC = 1024
-    pg.REGION_CELLS_DDMC = 1024
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    assert pg.supports(mesh, prm)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_grid_sigma_refresh_ddmc(monkeypatch):
-    """Sigma-refresh + DDMC: the 6 face-prob tiles ride the refresh carry and
-    stalled lanes interleave correctly with leak/albedo events."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_grid_ranged_gather_matches_xla(monkeypatch):
-    """Ranged chunk scans (composite region*K_SUB+chunk sort key + per-group
-    dynamic [min,max] chunk loops) forced on at test region size, together
-    with the refresh cadence they amortize: census complete, nothing lost,
-    statistics unchanged vs the XLA loop."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    monkeypatch.setattr(pg, "RANGED_GATHER", 1)
-    monkeypatch.setattr(pg, "RANGED_MIN_CHUNKS", 1)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    assert pg._subkeys_for(pg._grid_layout(mesh)[3]) > 1
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_grid_ranged_gather_ddmc(monkeypatch):
-    """Ranged scans + DDMC: face-pair gathers share the cell-index plan and
-    paused/finished lanes outside the scanned range never poison physics."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    monkeypatch.setattr(pg, "RANGED_GATHER", 1)
-    monkeypatch.setattr(pg, "RANGED_MIN_CHUNKS", 1)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_grid_window_gather_matches_xla(monkeypatch):
-    """Windowed chunk scans (static-width window around the host-computed
-    per-group base; escapees pause at refresh and re-bucket) forced on at
-    test region size: census complete, nothing lost, statistics unchanged vs
-    the XLA loop. W = half the slab here, so escapes DO happen and exercise
-    the pause -> tail-round path."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    monkeypatch.setattr(pg, "WINDOW_CHUNKS", 2)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    K_reg = pg._grid_layout(mesh)[3]
-    assert pg._window_for(K_reg) == 2 and pg._subkeys_for(K_reg) > 1
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_grid_window_gather_ddmc(monkeypatch):
-    """Windowed scans + DDMC: the face-pair gathers share the window plan and
-    escaped/paused lanes never consume out-of-window garbage."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    monkeypatch.setattr(pg, "SIGMA_SCAN_MIN_CHUNKS", 0)
-    monkeypatch.setattr(pg, "SIGMA_REFRESH", 4)
-    monkeypatch.setattr(pg, "WINDOW_CHUNKS", 2)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pg.transport_grid(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_bucket_nsub_layout():
-    """Composite-key bucketing (n_sub > 1): the region-level layout (tile
-    regions, per-tile membership) is bit-identical to n_sub=1, rows are
-    sub-sorted within each region, and the sort/gather backends agree."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    rng_ = np.random.default_rng(7)
-    n, R, n_sub, btile = 1000, 3, 8, 128
-    region = rng_.integers(0, R + 1, size=n)  # R = dump
-    sub = rng_.integers(0, n_sub, size=n)
-    key1 = jnp.asarray(np.where(region == R, R, region), jnp.int32)
-    keyc = jnp.asarray(
-        np.where(region == R, R * n_sub, region * n_sub + sub), jnp.int32
-    )
-    n_tiles = (n + (R + 1) * btile) // btile
-    s1, t1, d1 = pg._bucket_plan(key1, R, n_tiles, btile=btile)
-    sc, tc, dc = pg._bucket_plan(keyc, R, n_tiles, btile=btile, n_sub=n_sub)
-    assert np.array_equal(np.asarray(t1), np.asarray(tc))
-    s1_, sc_ = np.asarray(s1), np.asarray(sc)
-    regs = np.where(region == R, R, region)
-    t1_ = np.asarray(t1)
-    # same rows per REGION (set-wise; a region spanning several tiles may
-    # redistribute among its own tiles); composite order sub-sorted in-region
-    for r in range(R + 1):
-        tsel = np.repeat(t1_ == r, btile)
-        a = s1_[tsel]
-        b = sc_[tsel]
-        assert set(a.tolist()) == set(b.tolist()), r
-        real = b[b < n]
-        assert (regs[real] == r).all()
-        if r < R:
-            subs = sub[real]
-            assert (np.diff(subs) >= 0).all()  # sub-sorted
-    # sort backend mirrors the plan layout
-    rows = jnp.asarray(rng_.integers(-5, 5, size=(n, 2)), jnp.int32)
-    lid = jnp.arange(n, dtype=jnp.int32)
-    br, bl, bt, _ = pg._bucket_sort_apply(keyc, rows, lid, R, n_tiles,
-                                       btile=btile, n_sub=n_sub)
-    assert np.array_equal(np.asarray(bt), np.asarray(tc))
-    exp = np.concatenate([np.asarray(rows), np.zeros((1, 2), np.int32)])
-    assert np.array_equal(np.asarray(br), exp[np.minimum(sc_, n)])
-    # round-trip: unbucket restores ledger order
-    back = pg._unbucket_sort(br, bl, n)
-    assert np.array_equal(np.asarray(back), np.asarray(rows))
-
-
-def test_bucketed_ranged_gather(monkeypatch):
-    """Ranged chunk scans through the bucketed (block-region) kernel: the
-    composite (region, slab-chunk) sort key uses the per-parity block slots,
-    and census statistics match the XLA loop."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-
-    monkeypatch.setattr(pb, "RANGED_GATHER", 1)
-    monkeypatch.setattr(pb, "RANGED_MIN_CHUNKS", 1)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big()
-    assert pb._subkeys_for(pb._region_layout(mesh, prm.use_ddmc)[2]) > 1
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, ev_p = pb.transport_bucketed(
-        p, coefs, mesh, key, prm, dt, interpret=True
-    )
-    px_, _, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.05
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_bucketed_ranged_gather_ddmc(monkeypatch):
-    """Ranged scans + DDMC through the bucketed kernel: face-pair gathers
-    share the cell-index plan; paused/finished lanes outside the scanned
-    range keep their carried state."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-
-    monkeypatch.setattr(pb, "RANGED_GATHER", 1)
-    monkeypatch.setattr(pb, "RANGED_MIN_CHUNKS", 1)
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = pb.transport_bucketed(
-        p, coefs, mesh, key, prm, dt, interpret=True
-    )
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_bucketed_interpret_ddmc():
-    """DDMC through the bucketed kernel (thick cells, leakage across regions)."""
-    from jaybenne_tpu.ops.pallas_bucketed import transport_bucketed
-
-    cfg, mesh, prm, p, coefs, key, n = _setup_big(sigma_s=1.0e6, use_ddmc=True)
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, _, _ = transport_bucketed(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, _, _ = T.transport(p, coefs, mesh, key, prm, dt)
-    for out in (pp, px_):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n
-        assert not (np.asarray(out.tau)[alive] < 1.0).any()
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 2e-3
-
-
-def test_bucketed_interpret_smr_ddmc():
-    """Big SMR mesh + DDMC through the BUCKETED kernel: coarse->fine DDMC leaks
-    record a pending-leak code in-kernel, pause, and are subface-resampled by the
-    host between rounds (reference SampleDDMCBlockFace, sample_ddmc_bface.cpp) —
-    the same split the spatial decomposition uses. Census completes, energy is
-    conserved, and statistics match the XLA event loop."""
-    from jaybenne_tpu.ops import fleck as F
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-    from jaybenne_tpu.ops import pallas_transport as pt
-    from jaybenne_tpu.ops.pallas_bucketed import transport_bucketed
-
-    pb.REGION_CELLS_IMC = 1024
-    pb.REGION_CELLS_DDMC = 1024
-
-    deck = Deck.from_file(os.path.join(_ROOT, "inputs/stepdiff_smr_ddmc.in")).update(
-        {
-            "parthenon/mesh/nx1": 96,
-            "parthenon/mesh/nx2": 48,
-            "parthenon/meshblock/nx1": 8,
-            "parthenon/meshblock/nx2": 8,
-            "jaybenne/num_particles": 4000,
-            "jaybenne/dt": "3.e-12",
-            "parthenon/time/tlim": "3.e-12",
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    assert prm.use_ddmc and mesh.max_level > 0
-    assert not pt.supports(mesh, prm)  # past VMEM residency
-    assert pb.supports(mesh, prm)      # bucketed covers SMR+DDMC now
-
-    n = 4000
-    B = mesh.n_blocks
-    key = jr.PRNGKey(4)
-    ks = jr.split(key, 6)
-    blocks = jr.randint(ks[0], (n,), 0, B)
-    ci = jr.randint(ks[1], (n,), 0, mesh.nx)
-    cj = jr.randint(ks[2], (n,), 0, mesh.ny)
-    dxb = mesh.block_dx[blocks]
-    c = 2.99792458e10
-    mu = 1.0 - 2.0 * jr.uniform(ks[3], (n,))
-    phi = 2.0 * jnp.pi * jr.uniform(ks[4], (n,))
-    st = jnp.sqrt(jnp.maximum(1.0 - mu * mu, 0.0))
-    p = empty_ledger(pb.BTILE * ((n + pb.BTILE - 1) // pb.BTILE))
-    p = dataclasses.replace(
-        p,
-        x=p.x.at[:n].set((ci + 0.5) * dxb[:, 0]),
-        y=p.y.at[:n].set((cj + 0.5) * dxb[:, 1]),
-        vx=p.vx.at[:n].set(c * st * jnp.cos(phi)),
-        vy=p.vy.at[:n].set(c * st * jnp.sin(phi)),
-        vz=p.vz.at[:n].set(c * mu),
-        block=p.block.at[:n].set(blocks),
-        i=p.i.at[:n].set(ci),
-        j=p.j.at[:n].set(cj),
-        alive=p.alive.at[:n].set(True),
-        weight=p.weight.at[:n].set(1.0),
-    )
-    NC = mesh.total_cells
-    sigma_s = 1.0e3
-    sig = jnp.full((B, 1, mesh.ny, mesh.nx), sigma_s)
-    px, py, pz = F.ddmc_face_probs(
-        mesh, sig, cfg.jaybenne.tau_ddmc, cfg.mesh.periodic_flags, jnp.float32
-    )
-    coefs = T.TransportCoefs(
-        sigma_a=jnp.zeros((NC,)),
-        sigma_s=jnp.full((NC,), sigma_s),
-        fleck=jnp.ones((NC,)),
-        px=px, py=py, pz=pz,
-    )
-    dt = jnp.float32(3.0e-12)
-    pp, it_p, ev_p = transport_bucketed(p, coefs, mesh, key, prm, dt, interpret=True)
-    px_, it_x, ev_x = T.transport(p, coefs, mesh, key, prm, dt)
-
-    for out, name in ((pp, "bucketed"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name  # pure scattering: nobody dies
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-        assert not np.asarray(out.leak)[alive].any(), name  # all leaks resolved
-        assert (np.asarray(out.i)[alive] >= 0).all() and (
-            np.asarray(out.i)[alive] < mesh.nx
-        ).all(), name
-        assert (np.asarray(out.j)[alive] >= 0).all() and (
-            np.asarray(out.j)[alive] < mesh.ny
-        ).all(), name
-    gx_p = np.asarray(pp.global_position(mesh)[0])[np.asarray(pp.alive)]
-    gx_x = np.asarray(px_.global_position(mesh)[0])[np.asarray(px_.alive)]
-    assert abs(gx_p.mean() - gx_x.mean()) < 5e-3
-    assert abs(gx_p.std() - gx_x.std()) / gx_x.std() < 0.1
-
-
-def test_grid_unsplit_periodic_axis_wraps_in_kernel():
-    """A periodic axis the region grid does not split is wrapped IN-KERNEL (the
-    slab spans the axis): seam-crossers must complete census in the kernel
-    rather than pausing at the seam every round, and wrapped cells/positions
-    must stay consistent."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    deck = Deck.parse(DECK).update(
-        {
-            "parthenon/mesh/nx1": 32,
-            "parthenon/mesh/x1min": 0.0,
-            "parthenon/mesh/x1max": 1.0,
-            "parthenon/mesh/ix1_bc": "periodic",
-            "parthenon/mesh/ox1_bc": "periodic",
-            "parthenon/mesh/nx2": 8,
-            "parthenon/mesh/x2min": 0.0,
-            "parthenon/mesh/x2max": 0.25,
-            "parthenon/mesh/ix2_bc": "periodic",
-            "parthenon/mesh/ox2_bc": "periodic",
-            "parthenon/meshblock/nx1": 8,
-            "parthenon/meshblock/nx2": 8,
-            "jaybenne/dt": "1.0e-10",  # c*dt = 3 domain lengths: several wraps
-            "parthenon/time/tlim": "1.0e-10",
-            "mcblock/scattering_constant_value": 1.0e-1,
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    rn, ng, halo, _, _ = pg._grid_layout(mesh, prm.use_ddmc)
-    assert ng == (1, 1, 1)  # single region: both periodic axes unsplit
-
-    n = 256
-    c = 2.99792458e10
-    p = empty_ledger(pg.BTILE)
-    dxb = np.float32(mesh.block_dx[0, 0])
-    p = dataclasses.replace(
-        p,
-        x=p.x.at[:n].set(jnp.full((n,), 7.5 * dxb)),  # near block 3's +x face
-        y=p.y.at[:n].set(
-            jnp.linspace(0.01, float(mesh.block_dx[0, 1]) * 7.9, n, dtype=jnp.float32)
-        ),
-        vx=p.vx.at[:n].set(c * 0.8),
-        vy=p.vy.at[:n].set(c * 0.6),
-        block=p.block.at[:n].set(3),  # rightmost block in x
-        i=p.i.at[:n].set(7),
-        j=p.j.at[:n].set(jnp.arange(n, dtype=jnp.int32) % 8),
-        alive=p.alive.at[:n].set(True),
-        weight=p.weight.at[:n].set(1.0),
-    )
-    NC = mesh.total_cells
-    B = mesh.n_blocks
-    coefs = T.TransportCoefs(
-        sigma_a=jnp.zeros((NC,)),
-        sigma_s=jnp.full((NC,), 1.0e-1),
-        fleck=jnp.ones((NC,)),
-        px=jnp.zeros((B, 1, 8, 9)),
-        py=jnp.zeros((B, 1, 9, 8)),
-        pz=jnp.zeros((B, 2, 8, 8)),
-    )
-    pp, iters, events = pg.transport_grid(
-        p, coefs, mesh, jr.PRNGKey(11), prm, jnp.float32(1.0e-10), interpret=True
-    )
-    alive = np.asarray(pp.alive)
-    assert int(alive.sum()) == n
-    assert not (np.asarray(pp.tau)[alive] < 1.0).any()
-    # wrapped cells stay in range and consistent with block-local positions
-    ii = np.asarray(pp.i)[alive]
-    jj = np.asarray(pp.j)[alive]
-    assert (ii >= 0).all() and (ii < mesh.nx).all()
-    assert (jj >= 0).all() and (jj < mesh.ny).all()
-    gx = np.asarray(pp.global_position(mesh)[0])[alive]
-    assert (gx >= 0.0).all() and (gx <= 1.0).all()
-    # everything resolved in ONE bucketing round: iters == per-round max, which
-    # is bounded by the ballistic event count (~3 domains * 32 cells + margin),
-    # far below what seam-pause round accumulation would produce
-    assert int(iters) < 250, int(iters)
-
-
-def test_grid_floor_probe_mode():
-    """JB_FLOOR_ITERS floor-probe mode (BENCH.md empty-loop methodology): the
-    census body skips gathers/RNG/physics, every active lane runs exactly N
-    iterations to census, positions/cells unchanged, one bucketing round."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    deck = Deck.parse(DECK).update(
-        {
-            "parthenon/mesh/nx1": 32,
-            "parthenon/mesh/x1min": 0.0,
-            "parthenon/mesh/x1max": 1.0,
-            "parthenon/meshblock/nx1": 8,
-            "jaybenne/dt": "1.0e-10",
-            "parthenon/time/tlim": "1.0e-10",
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    n = 200
-    p = empty_ledger(pg.BTILE)
-    dxb = np.float32(mesh.block_dx[0, 0])
-    p = dataclasses.replace(
-        p,
-        x=p.x.at[:n].set(jnp.full((n,), 3.5 * dxb)),
-        vx=p.vx.at[:n].set(2.99792458e10),
-        i=p.i.at[:n].set(3),
-        alive=p.alive.at[:n].set(True),
-        weight=p.weight.at[:n].set(1.0),
-    )
-    NC = mesh.total_cells
-    coefs = T.TransportCoefs(
-        sigma_a=jnp.zeros((NC,)),
-        sigma_s=jnp.full((NC,), 1.0e2),
-        fleck=jnp.ones((NC,)),
-        px=jnp.zeros((4, 1, 1, 9)),
-        py=jnp.zeros((4, 1, 2, 8)),
-        pz=jnp.zeros((4, 2, 1, 8)),
-    )
-    old = pg.FLOOR_ITERS
-    pg.FLOOR_ITERS = 8
-    try:
-        pp, iters, events = pg.transport_grid(
-            p, coefs, mesh, jr.PRNGKey(3), prm, jnp.float32(1.0e-10),
-            interpret=True,
-        )
-    finally:
-        pg.FLOOR_ITERS = old
-    alive = np.asarray(pp.alive)
-    assert int(alive.sum()) == n
-    assert not (np.asarray(pp.tau)[alive] < 1.0).any()  # all at census
-    # no physics ran: positions and cells unchanged
-    np.testing.assert_array_equal(np.asarray(pp.i)[alive], 3)
-    np.testing.assert_allclose(np.asarray(pp.x)[alive], 3.5 * dxb, rtol=1e-6)
-    assert int(iters) == 8  # exactly N iterations, one round
-    assert int(events) == 8 * n
-
-
-def test_stable_order_matches_argsort():
-    """Radix stable argsort (bucketing permutation backend) == jnp.argsort for
-    random small-domain keys, including stability of ties."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops.pallas_grid import _stable_order
-
-    old = pg.BUCKET_SORT
-    pg.BUCKET_SORT = "radix"  # force the radix path (default may be lax)
-    try:
-        _run_stable_order_cases(_stable_order)
-    finally:
-        pg.BUCKET_SORT = old
 
 
 def _run_stable_order_cases(_stable_order):
@@ -1276,75 +554,10 @@ def _run_stable_order_cases(_stable_order):
         np.testing.assert_array_equal(got, want)
 
 
-def test_bucket_plan_invariants():
-    """The gather-only bucketing plan groups rows by key into BTILE-aligned
-    region blocks: every non-dump row gets exactly one slot (full-buffer
-    mode), slots within a region preserve source order (stability), tiles are
-    region-pure, dest_of_src inverts src_of_slot, and in tail mode (fewer
-    tiles, dump excluded) overflow rows are dropped rather than misplaced."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    R = 7
-    for n, seed in ((4096, 0), (30000, 1), (pg.BTILE - 3, 2)):
-        keyv = jr.randint(jr.PRNGKey(seed), (n,), 0, R + 1, dtype=jnp.int32)
-        bufcap = -(-(n + (R + 1) * pg.BTILE) // pg.BTILE) * pg.BTILE
-        grid = bufcap // pg.BTILE
-        src, treg, dest = pg._bucket_plan(
-            keyv, R, grid, include_dump=True, want_dest_of_src=True
-        )
-        src, treg, dest = np.asarray(src), np.asarray(treg), np.asarray(dest)
-        kv = np.asarray(keyv)
-        # every row got exactly one slot, and dest inverts src
-        assert sorted(src[src < n].tolist()) == list(range(n))
-        np.testing.assert_array_equal(src[dest], np.arange(n))
-        # tiles are region-pure and keys grouped ascending per slot
-        slot_region = np.repeat(treg, pg.BTILE)
-        occ = src < n
-        np.testing.assert_array_equal(kv[src[occ]], slot_region[occ])
-        # stability: source indices ascend within each region
-        for r in range(R + 1):
-            s = src[occ & (slot_region == r)]
-            assert (np.diff(s) > 0).all()
-        # tail mode: 2 tiles only, dump excluded, truncation not misplacement
-        src_t, treg_t, _ = pg._bucket_plan(
-            keyv, R, 2, include_dump=False, want_dest_of_src=False
-        )
-        src_t, treg_t = np.asarray(src_t), np.asarray(treg_t)
-        occ_t = src_t < n
-        assert (kv[src_t[occ_t]] == np.repeat(treg_t, pg.BTILE)[occ_t]).all()
-        assert (kv[src_t[occ_t]] < R + 1).all()
-        assert not (kv[src_t[occ_t]] == R).any() or (kv != R).sum() == 0
-
-
-def test_bucketed_supports_large_block_counts():
-    """The bucketed kernel's block-table budget admits refined meshes of
-    hundreds of blocks / >512 lookup tiles (its own cap, wider than the VMEM
-    kernel's), so they stay on the kernel path instead of the XLA loop."""
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-    from jaybenne_tpu.ops import pallas_transport as pt
-
-    deck = Deck.from_file(os.path.join(_ROOT, "inputs/stepdiff_smr_ddmc.in")).update(
-        {
-            "parthenon/mesh/nx1": 192,
-            "parthenon/mesh/nx2": 96,
-            "parthenon/meshblock/nx1": 8,
-            "parthenon/meshblock/nx2": 8,
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    from jaybenne_tpu.ops.pallas_transport import _n_tchunks
-
-    assert _n_tchunks(mesh) > 4  # past the VMEM kernel's block budget
-    assert not pt.supports(mesh, prm)
-    assert pb.supports(mesh, prm)
-
-
 def test_tabulated_opacity_runs_the_kernel(tmp_path):
-    """VERDICT r2 #4 (table half): opacity_model = table is a GRAY Planck-mean
-    table — kappa(rho, T) is frequency-independent, so coefficients precompute
-    per cell and the config routes to the census kernels, not the XLA loop.
+    """opacity_model = table is a GRAY Planck-mean table — kappa(rho, T) is
+    frequency-independent, so coefficients precompute per cell and the config
+    routes to the census kernel, not the XLA loop.
     A stepdiff variant with an absorbing table runs the kernel (interpret) and
     conserves total energy (live weight + absorbed deposits)."""
     import numpy as np_
@@ -1361,7 +574,7 @@ def test_tabulated_opacity_runs_the_kernel(tmp_path):
         {
             "mcblock/opacity_model": "table",
             "mcblock/opacity_table_file": path,
-            "jaybenne/use_pallas": "on",
+            "jaybenne/use_pallas": "interpret",
             "jaybenne/do_emission": "false",
             "jaybenne/do_feedback": "false",
         }
@@ -1371,12 +584,10 @@ def test_tabulated_opacity_runs_the_kernel(tmp_path):
     assert opacity.is_gray  # the production table path is Planck-mean (gray)
 
     sim = Simulation(cfg, quiet=True)
-    # the step routed to a kernel mode (not the XLA fallback)
-    from jaybenne_tpu.step import build_step_core  # noqa: F401  (routing below)
-    from jaybenne_tpu.ops import pallas_transport as pt
+    # the step routes to the kernel (not the XLA loop)
+    from jaybenne_tpu.step import census_path
 
-    prm = make_transport_params(cfg, jnp.float32)
-    assert pt.supports(sim.mesh, prm)
+    assert census_path(cfg.jaybenne.use_pallas, cfg.jaybenne.dtype) == "interpret"
     p0 = sim.state.particles
     w0 = float(np.asarray(p0.weight)[np.asarray(p0.alive)].sum())
     sim.run()
@@ -1390,14 +601,13 @@ def test_tabulated_opacity_runs_the_kernel(tmp_path):
 
 
 def test_epbremss_per_event_in_kernel():
-    """VERDICT r2 #4 (spectral half): the genuinely frequency-dependent model
-    (EPBremss, alpha ~ nu^-3) evaluates PER EVENT inside the VMEM kernel at the
+    """The genuinely frequency-dependent model (EPBremss, alpha ~ nu^-3)
+    evaluates PER EVENT inside the census kernel at the
     particle's photon energy — the reference's device-side
     ``AbsorptionCoefficient(rho, T, ee)`` (transport.cpp:122-127). Kernel
     (interpret) and XLA trajectories conserve energy identically and agree
     statistically; absorption must show the spectral bias (soft photons die)."""
     from jaybenne_tpu.driver import Simulation
-    from jaybenne_tpu.step import build_step_core
 
     mods = {
         "mcblock/opacity_model": "ep_bremss",
@@ -1415,7 +625,7 @@ def test_epbremss_per_event_in_kernel():
         "parthenon/time/tlim": "1.e-12",
     }
     out = {}
-    for mode in ("on", "off"):
+    for mode in ("interpret", "off"):
         deck = Deck.parse(DECK).update({**mods, "jaybenne/use_pallas": mode})
         cfg = cm.from_deck(deck)
         assert not cfg.mcblock.build_opacity().is_gray
@@ -1439,385 +649,44 @@ def test_epbremss_per_event_in_kernel():
         assert o["mean_E"] > o["mean_E0"], (mode, o)
     # kernel vs XLA survivor statistics agree (independent RNG streams;
     # ~100 survivors of 4000 -> Poisson bounds, not tight percentages)
-    n_on, n_off = out["on"]["surv"], out["off"]["surv"]
+    n_on, n_off = out["interpret"]["surv"], out["off"]["surv"]
     assert abs(n_on - n_off) < 4.0 * np.sqrt(n_on + n_off), (n_on, n_off)
     assert (
-        abs(out["on"]["mean_E"] - out["off"]["mean_E"]) / out["off"]["mean_E"]
+        abs(out["interpret"]["mean_E"] - out["off"]["mean_E"]) / out["off"]["mean_E"]
         < 0.3
     )
 
 
-def test_grid_nongray_per_event(monkeypatch):
-    """Frequency-dependent models on a mesh BEYOND VMEM residency run the
-    grid kernel (step.py routes non-gray big meshes there): (rho, T, fleck)
-    slabs, models evaluated per refresh at the particle's photon energy —
-    the reference's device-side ``AbsorptionCoefficient(rho, T, ee)``
-    (transport.cpp:122-127) at bucketed scale. Energy conserves exactly and
-    the nu^-3 spectral bias (soft photons die first) must appear; kernel vs
-    XLA survivor statistics agree."""
+def test_step_census_incomplete_signal():
+    """StepStats on the kernel path: the exact ``unfinished`` count — survivors
+    with tau < 1 when transport returned — is the census-incomplete signal,
+    and ``cap_hits`` fires only when the per-call iteration cap cut the
+    census off."""
     from jaybenne_tpu.driver import Simulation
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops import pallas_transport as pt
 
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
     mods = {
-        "parthenon/mesh/nx1": "8192",
-        "parthenon/meshblock/nx1": "256",
-        "mcblock/opacity_model": "ep_bremss",
-        "mcblock/initial_temperature": "1.0e6",
-        # cv is the LIVE heat-capacity key (the decks' `specific_heat` is dead
-        # in the reference too, mcblock.cpp:79). Without it cv = 1/(gamma-1) =
-        # 1.5 -> fleck ~ 1e-7, and ep_bremss soft photons become pure
-        # effective-scatterers at sigma ~ 1e20/cm: census physically cannot
-        # complete (the reference trips max_transport_iterations identically).
-        "mcblock/cv": "1.0e8",
-        "mcblock/scattering_constant_value": "1.0e2",
-        "jaybenne/do_emission": "false",
-        "jaybenne/do_feedback": "false",
-        "jaybenne/dt": "1.e-12",
-        "parthenon/time/tlim": "1.e-12",
+        "parthenon/mesh/nx1": 2048,
+        "parthenon/meshblock/nx1": 64,
+        "jaybenne/num_particles": 1000,
+        "jaybenne/use_pallas": "interpret",
+        # c*dt spans ~20 zone-capped events per particle
+        "jaybenne/dt": "3.3e-13",
+        "parthenon/time/tlim": "3.3e-13",
+        "mcblock/scattering_constant_value": "2.0e2",
     }
-    out = {}
-    for mode in ("on", "off"):
-        deck = Deck.parse(DECK).update({**mods, "jaybenne/use_pallas": mode})
-        cfg = cm.from_deck(deck)
-        assert not cfg.mcblock.build_opacity().is_gray
-        mesh = build_mesh(cfg.mesh)
-        prm = make_transport_params(cfg, jnp.float32)
-        # beyond the mega-kernel's residency cap -> the grid kernel covers it
-        assert not pt.supports(mesh, prm)
-        assert pg.supports(mesh, prm)
-        sim = Simulation(cfg, quiet=True)
-        p0 = sim.state.particles
-        w0 = float(np.asarray(p0.weight)[np.asarray(p0.alive)].sum())
-        sim.run()
-        p = sim.state.particles
-        alive = np.asarray(p.alive)
-        w_live = float(np.asarray(p.weight)[alive].sum())
-        absorbed = float(np.asarray(sim.state.fields.energy_delta).sum())
-        assert np.isclose(w_live + absorbed, w0, rtol=1e-4), mode
-        assert absorbed > 0, mode
-        out[mode] = {
-            "surv": int(alive.sum()),
-            "mean_E": float(np.asarray(p.energy)[alive].mean()),
-            "mean_E0": float(np.asarray(p0.energy)[np.asarray(p0.alive)].mean()),
-        }
-    for mode, o in out.items():
-        # nu^-3: low-energy photons absorb preferentially, survivors harden
-        assert o["mean_E"] > o["mean_E0"], (mode, o)
-    n_on, n_off = out["on"]["surv"], out["off"]["surv"]
-    assert abs(n_on - n_off) < 4.0 * np.sqrt(max(n_on + n_off, 1)), (n_on, n_off)
-    assert (
-        abs(out["on"]["mean_E"] - out["off"]["mean_E"]) / out["off"]["mean_E"]
-        < 0.3
-    )
-
-
-def test_bucketed_nongray_per_event(monkeypatch):
-    """Frequency-dependent models on an SMR mesh run the BUCKETED kernel
-    (step.py no longer gates non-gray off the kernel path): (rho, T, fleck)
-    region slabs, models evaluated per refresh at the particle's photon
-    energy. Energy conserves exactly; the nu^-3 spectral bias appears; kernel
-    vs XLA survivor statistics agree. Routing past the VMEM mega-kernel is
-    FORCED (supports -> False): its real big-mesh trigger needs a mesh whose
-    interpret-mode rounds cost tens of minutes on CPU — the selection logic
-    itself is covered by test_routing_* on production sizes."""
-    from jaybenne_tpu.driver import Simulation
-    from jaybenne_tpu.ops import pallas_bucketed as pb
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops import pallas_transport as pt
-
-    monkeypatch.setattr(pt, "supports", lambda *a, **k: False)
-    mods = {
-        "mcblock/opacity_model": "ep_bremss",
-        "mcblock/initial_temperature": "1.0e6",
-        # cv is the LIVE heat-capacity key (the decks' `specific_heat` is dead
-        # in the reference too, mcblock.cpp:79). Without it cv = 1/(gamma-1) =
-        # 1.5 -> fleck ~ 1e-7, and ep_bremss soft photons become pure
-        # effective-scatterers at sigma ~ 1e20/cm: census physically cannot
-        # complete (the reference trips max_transport_iterations identically).
-        "mcblock/cv": "1.0e8",
-        "mcblock/scattering_constant_value": "1.0e2",
-        "jaybenne/num_particles": "2000",
-        "jaybenne/use_ddmc": "false",
-        "jaybenne/do_emission": "false",
-        "jaybenne/do_feedback": "false",
-        "jaybenne/dt": "1.e-12",
-        "parthenon/time/tlim": "1.e-12",
-    }
-    out = {}
-    for mode in ("on", "off"):
-        deck = Deck.from_file(
-            os.path.join(_ROOT, "inputs/stepdiff_smr.in")
-        ).update({**mods, "jaybenne/use_pallas": mode})
-        cfg = cm.from_deck(deck)
-        assert not cfg.mcblock.build_opacity().is_gray
-        mesh = build_mesh(cfg.mesh)
-        prm = make_transport_params(cfg, jnp.float32)
-        assert mesh.max_level > 0
-        assert not pg.supports(mesh, prm)  # refined -> not the grid kernel
-        assert pb.supports(mesh, prm)      # bucketed covers non-gray SMR
-        sim = Simulation(cfg, quiet=True)
-        p0 = sim.state.particles
-        w0 = float(np.asarray(p0.weight)[np.asarray(p0.alive)].sum())
-        sim.run()
-        p = sim.state.particles
-        alive = np.asarray(p.alive)
-        w_live = float(np.asarray(p.weight)[alive].sum())
-        absorbed = float(np.asarray(sim.state.fields.energy_delta).sum())
-        assert np.isclose(w_live + absorbed, w0, rtol=1e-4), mode
-        assert absorbed > 0, mode
-        out[mode] = {
-            "surv": int(alive.sum()),
-            "mean_E": float(np.asarray(p.energy)[alive].mean()),
-            "mean_E0": float(np.asarray(p0.energy)[np.asarray(p0.alive)].mean()),
-        }
-    for mode, o in out.items():
-        # nu^-3: low-energy photons absorb preferentially, survivors harden
-        assert o["mean_E"] > o["mean_E0"], (mode, o)
-    n_on, n_off = out["on"]["surv"], out["off"]["surv"]
-    assert abs(n_on - n_off) < 4.0 * np.sqrt(max(n_on + n_off, 1)), (n_on, n_off)
-    assert (
-        abs(out["on"]["mean_E"] - out["off"]["mean_E"]) / out["off"]["mean_E"]
-        < 0.3
-    )
-
-
-def test_slab_tables_separable_matches_gather_oracle():
-    """The separable (three axis-take) slab-table build must reproduce the
-    flat-gather reference bitwise: cell tables and face tables (+1-sized axis,
-    modulo-cell wrap), periodic and physical axes, halo over/under-hang."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    rng = np.random.default_rng(7)
-    for dims, rn, ng, halo, per in [
-        ((12, 8, 6), (4, 4, 3), (3, 2, 2), (2, 2, 1), (True, False, True)),
-        ((16, 16, 1), (8, 4, 1), (2, 4, 1), (3, 2, 0), (False, True, False)),
-        ((10, 6, 8), (5, 6, 2), (2, 1, 4), (2, 0, 2), (True, True, True)),
-    ]:
-        NX, NY, NZ = dims
-        (rnx, rny, rnz), (NGX, NGY, NGZ) = rn, ng
-        hx, hy, hz = halo
-        sdx, sdy, sdz = rnx + 2 * hx, rny + 2 * hy, rnz + 2 * hz
-        R_pad = NGX * NGY * NGZ
-        rc = np.arange(R_pad)
-        origins = jnp.asarray(
-            np.stack(
-                [
-                    rc % NGX * rnx - hx,
-                    (rc // NGX) % NGY * rny - hy,
-                    rc // (NGX * NGY) * rnz - hz,
-                ],
-                axis=1,
-            ),
-            jnp.int32,
-        )
-        for rsh, wrap in [
-            ((sdz, sdy, sdx), None),              # cell table
-            ((sdz, sdy, sdx + 1), (NX, NY, NZ)),  # x-face table
-            ((sdz + 1, sdy, sdx), (NX, NY, NZ)),  # z-face table
-        ]:
-            glob = jnp.asarray(
-                rng.standard_normal(
-                    (NZ + (rsh[0] - sdz), NY + (rsh[1] - sdy), NX + (rsh[2] - sdx))
-                ),
-                jnp.float32,
-            )
-            K = -(-(rsh[0] * rsh[1] * rsh[2]) // pg.LANES)
-            want = pg._slab_tables_gather(
-                glob, rsh, origins, K, jnp.float32, per, wrap=wrap
-            )
-            got = pg._slab_tables(
-                glob, rsh, rn, ng, halo, K, jnp.float32, per, wrap=wrap
-            )
-            np.testing.assert_array_equal(
-                np.asarray(want), np.asarray(got), err_msg=f"{dims} {rsh} {wrap}"
-            )
-
-
-def test_grid_tail_rounds_periodic_split_overflow(monkeypatch):
-    """Tail rounds + periodic seam + tail-buffer overflow: with TAIL_DIV huge
-    the tail buffer is one tile and region-padded destinations overflow it, so
-    each round drains only the first occupied region — census must still
-    complete (overflowed particles wait in place), wrapped coordinates must
-    stay consistent, and statistics must match the XLA loop."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "TAIL_DIV", 10**9)
-
-    deck = Deck.parse(DECK).update(
-        {
-            "parthenon/mesh/nx1": 256,
-            "parthenon/mesh/x1min": 0.0,
-            "parthenon/mesh/x1max": 1.0,
-            "parthenon/mesh/ix1_bc": "periodic",
-            "parthenon/mesh/ox1_bc": "periodic",
-            "parthenon/mesh/nx2": 8,
-            "parthenon/mesh/x2min": 0.0,
-            "parthenon/mesh/x2max": 0.03125,
-            "parthenon/meshblock/nx1": 32,
-            "parthenon/meshblock/nx2": 8,
-            "jaybenne/dt": "2.0e-11",  # c*dt = 0.6 domain widths
-            "parthenon/time/tlim": "2.0e-11",
-            "mcblock/scattering_constant_value": 2.0e2,
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    rn, ng, halo, _, _ = pg._grid_layout(mesh, prm.use_ddmc)
-    assert ng[0] >= 4, ng  # periodic axis split: seam + region faces both hot
-
-    n = 2000
-    c = 2.99792458e10
-    key = jr.PRNGKey(3)
-    ks = jr.split(key, 4)
-    p = empty_ledger(pg.BTILE)
-    mu = 1.0 - 2.0 * jr.uniform(ks[0], (n,))
-    st = jnp.sqrt(1.0 - mu**2)
-    p = dataclasses.replace(
-        p,
-        x=p.x.at[:n].set(jr.uniform(ks[1], (n,)) * float(mesh.block_dx[0, 0]) * 32),
-        y=p.y.at[:n].set(jr.uniform(ks[2], (n,)) * float(mesh.block_dx[0, 1]) * 8),
-        vx=p.vx.at[:n].set(c * mu),
-        vy=p.vy.at[:n].set(c * st),
-        block=p.block.at[:n].set(jr.randint(ks[3], (n,), 0, mesh.n_blocks)),
-        i=p.i.at[:n].set(0),
-        j=p.j.at[:n].set(0),
-        alive=p.alive.at[:n].set(True),
-        weight=p.weight.at[:n].set(1.0),
-    )
-    # re-home cells from positions (block-local x in [0, 32*dx))
-    p = dataclasses.replace(
-        p,
-        i=p.i.at[:n].set(
-            jnp.clip((p.x[:n] / float(mesh.block_dx[0, 0])).astype(jnp.int32), 0, 31)
-        ),
-        j=p.j.at[:n].set(
-            jnp.clip((p.y[:n] / float(mesh.block_dx[0, 1])).astype(jnp.int32), 0, 7)
-        ),
-    )
-    nb = mesh.n_blocks
-    NC = mesh.total_cells
-    coefs = T.TransportCoefs(
-        sigma_a=jnp.zeros((NC,)),
-        sigma_s=jnp.full((NC,), 2.0e2),
-        fleck=jnp.ones((NC,)),
-        px=jnp.zeros((nb, mesh.nz, mesh.ny, mesh.nx + 1)),
-        py=jnp.zeros((nb, mesh.nz, mesh.ny + 1, mesh.nx)),
-        pz=jnp.zeros((nb, mesh.nz + 1, mesh.ny, mesh.nx)),
-    )
-    dt = jnp.float32(cfg.jaybenne.dt)
-    pp, it_p, ev_p = pg.transport_grid(
-        p, coefs, mesh, jr.PRNGKey(11), prm, dt, interpret=True
-    )
-    px_, it_x, ev_x = T.transport(p, coefs, mesh, jr.PRNGKey(12), prm, dt)
-
-    for out, name in ((pp, "grid"), (px_, "xla")):
-        alive = np.asarray(out.alive)
-        assert int(alive.sum()) == n, name
-        assert not (np.asarray(out.tau)[alive] < 1.0).any(), name
-    # positions consistent with integer cells after wrapping
-    for out in (pp,):
-        al = np.asarray(out.alive)
-        gx = np.asarray(out.global_position(mesh)[0])[al]
-        assert (gx >= 0.0).all() and (gx <= 1.0 + 1e-5).all()
-        ii = np.asarray(out.i)[al]
-        assert (ii >= 0).all() and (ii < mesh.nx).all()
-    gy_p = np.asarray(pp.global_position(mesh)[1])[np.asarray(pp.alive)]
-    gy_x = np.asarray(px_.global_position(mesh)[1])[np.asarray(px_.alive)]
-    assert abs(gy_p.mean() - gy_x.mean()) < 2e-3
-    assert abs(int(ev_p) - int(ev_x)) / int(ev_x) < 0.05
-
-
-def test_bucket_sort_apply_matches_plan_gather():
-    """The sort-based bucketing backend (one stable multi-payload sort) must
-    place rows bit-identically to the _bucket_plan index-plan + row gather it
-    replaces, and _unbucket_sort must invert it exactly."""
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    rng = np.random.default_rng(3)
-    btile = 64
-    n_regions = 7
-    n = 1000
-    cap_rows = rng.integers(-(2**31), 2**31 - 1, size=(n, 13), dtype=np.int32)
-    # region keys incl. the dump segment (== n_regions), skewed occupancy
-    keyv = np.minimum(
-        rng.geometric(0.35, size=n).astype(np.int32) - 1, n_regions
-    )
-    n_tiles = (n + (n_regions + 1) * btile) // btile + 1
-
-    rows = jnp.asarray(cap_rows)
-    kv = jnp.asarray(keyv)
-    lid = jnp.arange(n, dtype=jnp.int32)
-
-    buf_s, lid_s, tr_s, _ = pg._bucket_sort_apply(
-        kv, rows, lid, n_regions, n_tiles, btile=btile
-    )
-    src_of_slot, tr_g, dest_of_src = pg._bucket_plan(
-        kv, n_regions, n_tiles, include_dump=True, want_dest_of_src=True,
-        btile=btile,
-    )
-    buf_g = jnp.concatenate([rows, jnp.zeros((1, 13), jnp.int32)])[src_of_slot]
-
-    np.testing.assert_array_equal(np.asarray(tr_s), np.asarray(tr_g))
-    np.testing.assert_array_equal(np.asarray(buf_s), np.asarray(buf_g))
-    # slot->row ids agree with the plan's source map (sentinel n for pads)
-    np.testing.assert_array_equal(np.asarray(lid_s), np.asarray(src_of_slot))
-    # exact inversion
-    back = pg._unbucket_sort(buf_s, lid_s, n)
-    np.testing.assert_array_equal(np.asarray(back), cap_rows)
-    # and the gather path's inverse agrees
-    np.testing.assert_array_equal(
-        np.asarray(buf_s[dest_of_src]), cap_rows
-    )
-
-
-def test_step_census_incomplete_signal(monkeypatch):
-    """StepStats on the multi-round grid-kernel path (review r3): the exact
-    ``unfinished`` count — survivors with tau < 1 when transport returned —
-    is the census-incomplete signal, and ``cap_hits`` never compares the
-    SUMMED per-round iterations to the per-call cap (a completed census
-    whose rounds total past max_transport_iterations is not a cap hit)."""
-    from jaybenne_tpu.driver import Simulation
-    from jaybenne_tpu.ops import pallas_grid as pg
-    from jaybenne_tpu.ops import pallas_transport as pt
-
-    monkeypatch.setattr(pg, "REGION_CELLS_IMC", 1024)
-    monkeypatch.setattr(pg, "REGION_CELLS_DDMC", 1024)
-    # shrink the mega-kernel's residency cap so the grid kernel owns this mesh
-    monkeypatch.setattr(pt, "MAX_CELL_CHUNKS", 8)
-    deck = Deck.parse(DECK).update(
-        {
-            "parthenon/mesh/nx1": 2048,
-            "parthenon/meshblock/nx1": 64,
-            "jaybenne/num_particles": 1000,
-            "jaybenne/use_pallas": "on",
-            # c*dt spans ~20 zone-capped events per particle; a 12-iteration
-            # per-call cap forces >= 2 bucket rounds to complete the census
-            "jaybenne/max_transport_iterations": 12,
-            "jaybenne/dt": "3.3e-13",
-            "parthenon/time/tlim": "3.3e-13",
-            "mcblock/scattering_constant_value": "2.0e2",
-        }
-    )
-    cfg = cm.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    prm = make_transport_params(cfg, jnp.float32)
-    assert not pt.supports(mesh, prm) and pg.supports(mesh, prm)
-
+    cfg = cm.from_deck(Deck.parse(DECK).update(mods))
     sim = Simulation(cfg, quiet=True)
     _, stats = sim.step_fn(sim.state, jnp.float32(cfg.jaybenne.dt))
-    # completed census over several rounds: summed iters exceed the per-call
-    # cap, yet neither incomplete signal may fire
     assert int(stats.iterations) > 12, int(stats.iterations)
     assert int(stats.unfinished) == 0
     assert int(stats.cap_hits) == 0
 
-    # truncate the round loop: the exact unfinished count must report it
-    monkeypatch.setattr(pg, "MAX_BUCKET_ROUNDS", 1)
-    sim2 = Simulation(cfg, quiet=True)
+    # a 12-iteration cap cuts the census off: both signals must report it
+    cfg2 = cm.from_deck(
+        Deck.parse(DECK).update({**mods, "jaybenne/max_transport_iterations": 12})
+    )
+    sim2 = Simulation(cfg2, quiet=True)
     _, stats2 = sim2.step_fn(sim2.state, jnp.float32(cfg.jaybenne.dt))
+    assert int(stats2.iterations) == 12
     assert int(stats2.unfinished) > 0
-    assert int(stats2.cap_hits) == 0
+    assert int(stats2.cap_hits) == 1

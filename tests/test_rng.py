@@ -51,10 +51,7 @@ def test_pool_circle_uniform_on_circle():
     moments, uncorrelated components, and a sign-balanced sine."""
     from jaybenne_tpu.ops import pallas_rng as prng
 
-    shape = (512, 128)  # 65536 samples
-    raw = prng.make_raw_bits(
-        shape, jnp.uint32(1234), 0, interpret=True
-    )
+    raw = prng.make_raw_bits(65536, jnp.uint32(1234), 0)
     pool = prng.DrawPool(raw)
     ch, sh = pool.circle(jnp.int32(0))
     c = np.asarray(ch).reshape(-1).astype(np.float64)

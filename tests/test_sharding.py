@@ -87,6 +87,33 @@ def test_sharded_smoke_two_devices():
     assert int(sim.state.overflow) == 0
 
 
+def test_sharded_census_kernel_two_devices():
+    """Particle-sharded run through the census kernel (interpret): the kernel
+    composes with shard_map (each shard runs its ledger slice), conserves
+    energy exactly, and leaves a replicated tally."""
+    deck = Deck.parse(DECK).update(
+        {
+            "jaybenne/n_devices": 2,
+            "jaybenne/num_particles": 6000,
+            "jaybenne/use_pallas": "interpret",
+            "parthenon/time/tlim": "3.335641e-11",
+            "mcblock/scattering_constant_value": "2.0e2",
+        }
+    )
+    sim = Simulation(cfg_mod.from_deck(deck), quiet=True)
+    p0 = sim.state.particles
+    w0 = float(np.asarray(p0.weight)[np.asarray(p0.alive)].sum())
+    sim.run()
+    p = sim.state.particles
+    w1 = float(np.asarray(p.weight)[np.asarray(p.alive)].sum())
+    assert np.isclose(w0, w1, rtol=1e-5)
+    t = np.asarray(sim.state.fields.energy_tally)
+    dv = np.asarray(sim.mesh.block_volume)[:, None, None, None]
+    assert np.isclose((t * dv).sum(), w1, rtol=1e-4)
+    assert int(sim.state.overflow) == 0
+    assert sim.history[-1]["events"] > 0
+
+
 @pytest.mark.slow
 def test_sharded_matches_single_device_statistics():
     """1-device and 8-device runs of the same problem agree to MC noise, and the
@@ -150,48 +177,3 @@ def test_sharded_energy_conservation():
     assert abs(w_total - expect) / expect < 2e-3
     assert int(s8.state.overflow) == 0
 
-
-def test_sharded_grid_kernel_two_devices():
-    """Particle-sharded run through the big-mesh GRID kernel (interpret): a
-    uniform mesh past VMEM residency, 2 devices, use_pallas=on. Checks the
-    kernel path composes with shard_map (per-shard tile-rounded ledgers) and
-    conserves energy exactly with a replicated tally."""
-    from jaybenne_tpu import step as step_mod
-    from jaybenne_tpu.mesh import build_mesh
-    from jaybenne_tpu.ops import pallas_grid as pg
-
-    deck = Deck.parse(DECK).update(
-        {
-            "jaybenne/n_devices": 2,
-            "jaybenne/num_particles": 6000,
-            "jaybenne/use_pallas": "on",
-            "parthenon/mesh/nx1": 128,
-            "parthenon/mesh/nx2": 64,
-            "parthenon/mesh/ix2_bc": "periodic",
-            "parthenon/mesh/ox2_bc": "periodic",
-            "parthenon/meshblock/nx1": 32,
-            "parthenon/meshblock/nx2": 32,
-            "parthenon/time/tlim": "3.335641e-11",
-            "mcblock/scattering_constant_value": "2.0e2",
-        }
-    )
-    cfg = cfg_mod.from_deck(deck)
-    mesh = build_mesh(cfg.mesh)
-    import jax.numpy as jnp
-
-    prm = step_mod.make_transport_params(cfg, jnp.float32)
-    from jaybenne_tpu.ops import pallas_transport as pt
-
-    assert not pt.supports(mesh, prm)  # past VMEM residency
-    assert pg.supports(mesh, prm)  # grid kernel takes it
-    sim = Simulation(cfg, quiet=True)
-    p0 = sim.state.particles
-    w0 = float(np.asarray(p0.weight)[np.asarray(p0.alive)].sum())
-    sim.run()
-    p = sim.state.particles
-    w1 = float(np.asarray(p.weight)[np.asarray(p.alive)].sum())
-    assert np.isclose(w0, w1, rtol=1e-5)
-    t = np.asarray(sim.state.fields.energy_tally)
-    dv = np.asarray(sim.mesh.block_volume)[:, None, None, None]
-    assert np.isclose((t * dv).sum(), w1, rtol=1e-4)
-    assert int(sim.state.overflow) == 0

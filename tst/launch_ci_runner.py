@@ -2,11 +2,11 @@
 """Local/HPC CI launcher — the equivalent of the reference's
 ``tst/launch_ci_runner.py`` (which clones a PR, builds, runs the suite on LANL
 Darwin and posts a GitHub commit status). This version runs the full regression
-matrix locally (optionally on a TPU host), writes a JSON report, and — when a
+matrix locally (on the CPU or a GPU host), writes a JSON report, and — when a
 GitHub token + SHA are provided — posts a commit status.
 
 Usage:
-  python tst/launch_ci_runner.py [--devices 1,8] [--backend cpu|tpu]
+  python tst/launch_ci_runner.py [--devices 1,8] [--backend cpu|gpu]
                                  [--report report.json]
                                  [--post-status --sha <sha> --repo org/name]
 """
@@ -23,7 +23,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 # (script, input, devices, extra CLI args[, "slow"]) — the reference CI matrix
-# (ci.yml:122-140) plus TPU-build extension rows. Rows tagged "slow" only run
+# (ci.yml:122-140) plus extension rows of this build. Rows tagged "slow" only run
 # under --full (weekly-depth variants; every capability they guard also has a
 # cheap default row).
 MATRIX = [
@@ -50,7 +50,7 @@ MATRIX = [
      ("--per-cell", "--override", "jaybenne/num_particles=400000"), "slow"),
     ("inf.py", "inf.in", 1, ()),
     ("inf_stiff.py", "inf_stiff.in", 1, ()),
-    # TPU-build extensions beyond the reference matrix: 3D SMR+DDMC proof and
+    # extensions of this build beyond the reference matrix: 3D SMR+DDMC proof and
     # the spatial (block-sharded) decomposition end to end
     ("stepdiff_3d.py", "stepdiff_3d_smr_ddmc.in", 1, ()),
     # spatial needs >= 1 block per shard (the stepdiff gate pins a single
@@ -132,7 +132,7 @@ def post_status(repo, sha, ok, token):  # pragma: no cover - needs network
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", default="1,8")
-    ap.add_argument("--backend", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--backend", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--report", default=None)
     ap.add_argument("--only", default=None,
                     help="run only rows whose deck name contains this substring")
